@@ -1,0 +1,177 @@
+"""Batched BLS12-381 optimal-ate pairing on tensors.
+
+Port of ``lighthouse_tpu/ops/pairing.py``: Miller loop over the bits of |x|
+in Jacobian coordinates with division-free line evaluation (each line is
+scaled by a nonzero Fp2 factor that the final exponentiation annihilates),
+a final conjugation for x < 0, then the easy part and the
+Hayashida-Hayasaka-Teruya hard-part chain.
+
+|x| is a constant, so the Python loops over its bits run the addition step
+(and the multiply of a cyclotomic power) only on its 6 one bits; the
+reference computes both legs every step and selects. The kept leg's limbs
+are the same.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..crypto.bls.constants import X
+from .field import const
+from .points import FP2_OPS, pt_from_affine
+from .tower import (
+    FP12_ONE,
+    FP2_ZERO,
+    _stk2,
+    _stk6,
+    fp12_conj,
+    fp12_frobenius,
+    fp12_frobenius2,
+    fp12_inv,
+    fp12_mul,
+    fp12_sqr,
+    fp2_double,
+    fp2_mul,
+    fp2_mul_fp,
+    fp2_neg,
+    fp2_sqr,
+    fp2_sub,
+    fp2_triple,
+)
+
+_X_ABS = -X
+_X_BITS = bin(_X_ABS)[3:]  # below the leading bit, MSB first
+
+
+def _embed_line(A, B, C, xp, yp):
+    """Sparse line value -> dense Fp12.
+
+    l = A + B*xp (slot c0.c1) + C*yp (slot c1.c1), matching the oracle's
+    twist embedding: G1 x rides the w^2 (= v) slot, G1 y the w^3 (= v*w)
+    slot. xp/yp are Fp tensors; A/B/C are Fp2.
+    """
+    z = const(FP2_ZERO, A.device).expand(A.shape)
+    c0 = _stk2(A, fp2_mul_fp(B, xp), z)
+    c1 = _stk2(z, fp2_mul_fp(C, yp), z)
+    return _stk6(c0, c1)
+
+
+def _dbl_step(T):
+    """Double T and return the line through T (scaled by 2YZ^3).
+
+    Coefficients: A = E*X - 2B, B_xp = -E*Z^2, C_yp = Z3*Z^2 with
+    E = 3X^2, B = Y^2, Z3 = 2YZ.
+    """
+    F = FP2_OPS
+    Xc, Yc, Zc = T
+    A_ = fp2_sqr(Xc)
+    B_ = fp2_sqr(Yc)
+    C_ = fp2_sqr(B_)
+    D_ = fp2_double(fp2_sub(fp2_sub(fp2_sqr(F.add(Xc, B_)), A_), C_))
+    E_ = fp2_triple(A_)
+    F_ = fp2_sqr(E_)
+    X3 = fp2_sub(F_, fp2_double(D_))
+    Y3 = fp2_sub(
+        fp2_mul(E_, fp2_sub(D_, X3)),
+        fp2_double(fp2_double(fp2_double(C_))),
+    )
+    Z3 = fp2_double(fp2_mul(Yc, Zc))
+    Z_sq = fp2_sqr(Zc)
+    lA = fp2_sub(fp2_mul(E_, Xc), fp2_double(B_))
+    lB = fp2_neg(fp2_mul(E_, Z_sq))
+    lC = fp2_mul(Z3, Z_sq)
+    return (X3, Y3, Z3), (lA, lB, lC)
+
+
+def _add_step(T, Qaff):
+    """T + Q (Q affine) and the line through them (scaled by 2ZH).
+
+    Coefficients: A = r*xq - Z3*yq, B_xp = -r, C_yp = Z3 with
+    r = 2(S2 - Y), H = U2 - X, Z3 = 2ZH (madd-2007-bl mixed addition).
+    """
+    F = FP2_OPS
+    X1, Y1, Z1 = T
+    xq, yq = Qaff
+    Z1Z1 = fp2_sqr(Z1)
+    U2 = fp2_mul(xq, Z1Z1)
+    S2 = fp2_mul(yq, fp2_mul(Z1, Z1Z1))
+    H = fp2_sub(U2, X1)
+    r = fp2_double(fp2_sub(S2, Y1))
+    I = fp2_sqr(fp2_double(H))
+    J = fp2_mul(H, I)
+    V = fp2_mul(X1, I)
+    X3 = fp2_sub(fp2_sub(fp2_sqr(r), J), fp2_double(V))
+    Y3 = fp2_sub(fp2_mul(r, fp2_sub(V, X3)), fp2_double(fp2_mul(Y1, J)))
+    Z3 = fp2_sub(fp2_sub(fp2_sqr(F.add(Z1, H)), Z1Z1), fp2_sqr(H))  # 2 Z1 H
+    lA = fp2_sub(fp2_mul(r, xq), fp2_mul(Z3, yq))
+    lB = fp2_neg(r)
+    lC = Z3
+    return (X3, Y3, Z3), (lA, lB, lC)
+
+
+def _sel12(mask, a, b):
+    return torch.where(mask[(...,) + (None,) * 4], a, b)
+
+
+def miller_loop(p_aff, p_inf, q_aff, q_inf):
+    """Batched Miller loop f_{|x|,Q}(P), conjugated for x < 0.
+
+    p_aff: (xp, yp) Fp tensors [..., 48]; q_aff: (xq, yq) Fp2 tensors.
+    Lanes with P or Q at infinity yield Fp12 one.
+    """
+    xp, yp = p_aff
+    T = pt_from_affine(FP2_OPS, q_aff[0], q_aff[1], q_inf)
+    one = const(FP12_ONE, xp.device)
+    f = one.expand(*xp.shape[:-1], *one.shape)
+    for bit in _X_BITS:
+        f = fp12_sqr(f)
+        T, line = _dbl_step(T)
+        f = fp12_mul(f, _embed_line(*line, xp, yp))
+        if bit == "1":
+            T, line = _add_step(T, q_aff)
+            f = fp12_mul(f, _embed_line(*line, xp, yp))
+    f = fp12_conj(f)  # x < 0
+    return _sel12(p_inf | q_inf, one.expand(f.shape), f)
+
+
+# ------------------------------------------------------ final exponentiation
+
+
+def _cyc_pow_x(f):
+    """f^x (x the negative BLS parameter), cyclotomic subgroup only."""
+    acc = f  # the leading bit consumes f itself
+    for bit in bin(_X_ABS)[3:]:
+        acc = fp12_sqr(acc)
+        if bit == "1":
+            acc = fp12_mul(acc, f)
+    return fp12_conj(acc)  # x < 0
+
+
+def _cyc_pow_x_minus_1(f):
+    return fp12_mul(_cyc_pow_x(f), fp12_conj(f))
+
+
+def final_exponentiation(f):
+    """f^(3(p^12-1)/r): easy part then the HHT hard-part chain, exactly the
+    oracle's schedule, batched."""
+    f = fp12_mul(fp12_conj(f), fp12_inv(f))      # f^(p^6 - 1)
+    f = fp12_mul(fp12_frobenius2(f), f)          # ^(p^2 + 1)
+    a = _cyc_pow_x_minus_1(_cyc_pow_x_minus_1(f))
+    b = fp12_mul(_cyc_pow_x(a), fp12_frobenius(a))
+    c = fp12_mul(
+        fp12_mul(_cyc_pow_x(_cyc_pow_x(b)), fp12_frobenius2(b)), fp12_conj(b)
+    )
+    return fp12_mul(fp12_mul(c, fp12_sqr(f)), f)
+
+
+def fp12_tree_prod(f, axis_size: int):
+    """Product over the leading axis by binary halving (pad with one)."""
+    n = axis_size
+    if n & (n - 1):
+        raise ValueError("pad to a power of two")
+    while n > 1:
+        half = n // 2
+        f = fp12_mul(f[:half], f[half:n])
+        n = half
+    return f[0]
+

@@ -1,0 +1,235 @@
+"""PyTorch/CUDA BLS backend: ``verify_signature_sets`` on an H100.
+
+Port of the classic verify path of ``lighthouse_tpu/jax_backend.py``
+(``JaxBackend._dispatch`` with ``LHTPU_FUSED_VERIFY=0``,
+``LHTPU_PALLAS_MONT_MUL=1``, ``LHTPU_DEVICE_HTC=0``): the whole batch check
+
+    prod_i e([r_i] agg_pk_i, H(m_i)) * e(-g1, sum_i [r_i] sig_i) == 1
+
+plus the signature subgroup checks runs as tensor code on one device, with
+every Fp multiply going through kernel K1 (``ops/mont_mul.py``) on the card.
+
+* Static shapes: sets pad to S (power of two), keys per set to K; padding
+  lanes are points at infinity, the neutral element everywhere.
+* Structural rejects (empty list, a set with no keys, an infinity
+  signature) are answered on the host before any field math.
+* Messages are hashed to G2 by the host oracle, once per distinct message.
+* The RLC blinding scalars come from the host CSPRNG (``secrets``), never
+  from a seeded generator: predictable blinding scalars break soundness.
+
+Sets are read by duck typing (``.signature.point``,
+``.signature.is_infinity()``, ``.signing_keys[i].point``, ``.message``), so
+the JAX package's set objects work unchanged.
+
+The Python loops here issue many small launches per verify (the Miller
+steps, the 255-step subgroup check, the Fermat inversions): on the card this
+path is bound by launch overhead, not by K1.
+"""
+
+from __future__ import annotations
+
+import secrets
+import time
+from contextlib import contextmanager
+
+import numpy as np
+import torch
+
+from . import interop
+from .crypto.bls.constants import RAND_BITS
+from .crypto.bls.curve import g1_infinity, g2_infinity
+from .crypto.bls.hash_to_curve import hash_to_g2
+from .dedup import dedup_plan
+from .ops import field
+from .ops.field import const
+from .ops.pairing import final_exponentiation, fp12_tree_prod, miller_loop
+from .ops.points import (
+    FP2_OPS,
+    FP_OPS,
+    G1_GEN_DEV,
+    g1_to_dev,
+    g2_to_dev,
+    pt_from_affine,
+    pt_scalar_mul_bits,
+    pt_subgroup_check,
+    pt_to_affine,
+    pt_tree_sum,
+    pt_tree_sum_axis,
+)
+from .ops.tower import fp12_is_one
+
+
+def next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+@contextmanager
+def _stage(name: str, stages: dict):
+    """Time one dispatch stage into ``stages[name]`` (seconds)."""
+    t0 = time.perf_counter()
+    yield
+    stages[name] = time.perf_counter() - t0
+
+
+def _rand_scalars(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """n nonzero RAND_BITS-bit scalars from the host CSPRNG:
+    (uint64[n], MSB-first bits int32[n, 64])."""
+    buf = np.frombuffer(secrets.token_bytes(n * 8), dtype=np.uint64).copy()
+    buf[buf == 0] = 1  # nonzero blinding scalars
+    shifts = np.arange(RAND_BITS - 1, -1, -1, dtype=np.uint64)
+    bits = ((buf[:, None] >> shifts[None, :]) & 1).astype(np.int32)
+    return buf, bits
+
+
+def _pad_pair_lanes(g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf, pad: int):
+    """Pad multi-pairing operands with ``pad`` inert lanes (the last row's
+    coordinates, marked infinity -> contributes Fp12 one)."""
+    if pad:
+        def rep(x):
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+
+        ones = torch.ones(pad, dtype=torch.bool, device=g1_inf.device)
+        g1_x, g1_y, g2_x, g2_y = rep(g1_x), rep(g1_y), rep(g2_x), rep(g2_y)
+        g1_inf = torch.cat([g1_inf, ones])
+        g2_inf = torch.cat([g2_inf, ones])
+    return g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf
+
+
+def aggregate_pubkeys(pk, pk_inf):
+    """Per-set pubkey aggregation: a K-leaf binary tree of Jacobian adds,
+    then canonical affine. pk: (x, y) [S, K, 48]; pk_inf: bool [S, K]."""
+    K = pk_inf.shape[1]
+    pk_j = pt_from_affine(FP_OPS, pk[0], pk[1], pk_inf)
+    agg = pt_tree_sum_axis(FP_OPS, pk_j, axis=1, axis_size=K)  # [S]
+    return pt_to_affine(FP_OPS, agg)
+
+
+@torch.inference_mode()
+def _verify_core(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits):
+    """The device program of the classic path (reference:
+    ``jax_backend._verify_core``). All shapes static.
+
+    pk:      (x[S,K,48], y[S,K,48]) affine G1, Montgomery limbs
+    pk_inf:  bool[S,K]   (padding lanes = infinity)
+    sig:     (x[S,2,48], y[S,2,48]) affine G2
+    sig_inf: bool[S]     (padding sets = infinity; real infinity rejected on host)
+    msg:     (x[S,2,48], y[S,2,48]) affine G2 hash points
+    msg_inf: bool[S]
+    r_bits:  int32[S,64] RLC scalars, MSB first (padding sets: anything)
+
+    Returns a 0-dim bool tensor on the operands' device (not synchronized).
+    """
+    S = pk_inf.shape[0]
+    dev = pk_inf.device
+    agg_aff = aggregate_pubkeys(pk, pk_inf)
+
+    # RLC: [r_i] agg_pk_i and [r_i] sig_i (64-bit double-and-add).
+    rpk = pt_scalar_mul_bits(FP_OPS, agg_aff[:2], agg_aff[2], r_bits)
+    rsig = pt_scalar_mul_bits(FP2_OPS, sig, sig_inf, r_bits)
+
+    # Signature subgroup membership ([order]sig == inf; infinity passes and
+    # is either a padding lane or already rejected host-side).
+    sig_j = pt_from_affine(FP2_OPS, sig[0], sig[1], sig_inf)
+    sub_ok = pt_subgroup_check(FP2_OPS, sig_j).all()
+
+    # sum_i [r_i] sig_i, then one affine normalization for the Miller loop.
+    sig_acc = pt_tree_sum(FP2_OPS, rsig, S)
+    sig_acc_aff = pt_to_affine(FP2_OPS, tuple(c.unsqueeze(0) for c in sig_acc))
+
+    # Multi-pairing: S set pairs + 1 check pair, padded to a power of two.
+    rpk_aff = pt_to_affine(FP_OPS, rpk)
+    gx = const(G1_GEN_DEV[0], dev).unsqueeze(0)
+    gy = field.neg(const(G1_GEN_DEV[1], dev)).unsqueeze(0)
+    g1_x = torch.cat([rpk_aff[0], gx])
+    g1_y = torch.cat([rpk_aff[1], gy])
+    g1_inf = torch.cat([rpk_aff[2], torch.zeros(1, dtype=torch.bool, device=dev)])
+    g2_x = torch.cat([msg[0], sig_acc_aff[0]])
+    g2_y = torch.cat([msg[1], sig_acc_aff[1]])
+    g2_inf = torch.cat([msg_inf, sig_acc_aff[2]])
+
+    M = next_pow2(S + 1)
+    g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf = _pad_pair_lanes(
+        g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf, M - (S + 1)
+    )
+
+    f = miller_loop((g1_x, g1_y), g1_inf, (g2_x, g2_y), g2_inf)
+    f = fp12_tree_prod(f, M)
+    f = final_exponentiation(f)
+    return fp12_is_one(f) & sub_ok
+
+
+class TorchBackend:
+    """Batch verifier on one device: the card unless ``device`` says
+    otherwise (``device="cpu"`` runs the plain versions of the kernels)."""
+
+    def __init__(self, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchBackend: no CUDA device; pass device='cpu' to run "
+                    "the plain versions on the host"
+                )
+            device = "cuda"
+        self.device = torch.device(device)
+        # Stage -> seconds of the most recent verify: pack / hash_to_curve /
+        # scalars / dispatch / device_sync (empty after a host reject).
+        self.last_stage_seconds: dict = {}
+        # Device of the operand tensors of the most recent dispatch.
+        self.last_operand_device: torch.device | None = None
+
+    def verify_signature_sets(self, sets) -> bool:
+        stages: dict[str, float] = {}
+        self.last_stage_seconds = stages
+        self.last_operand_device = None
+        if not sets:
+            return False
+        # Host-side structural rejections.
+        for s in sets:
+            if not s.signing_keys:
+                return False
+            if s.signature.is_infinity():
+                return False
+
+        n = len(sets)
+        S = next_pow2(n)
+        K = next_pow2(max(len(s.signing_keys) for s in sets))
+        inf1, inf2 = g1_infinity(), g2_infinity()
+
+        with _stage("pack", stages):
+            px, py, pinf = _pack_pubkey_grid(sets, S, K, n, inf1)
+            sigs = [s.signature.point for s in sets] + [inf2] * (S - n)
+            sx, sy, sinf = g2_to_dev(sigs)
+        with _stage("hash_to_curve", stages):
+            mx, my, minf = _hash_messages([s.message for s in sets], S, inf2)
+        with _stage("scalars", stages):
+            _, r_bits = _rand_scalars(S)
+        with _stage("dispatch", stages):
+            ops = interop.operands_from_numpy(
+                px, py, pinf, sx, sy, sinf, mx, my, minf, r_bits, self.device
+            )
+            self.last_operand_device = ops[1].device
+            ok = _verify_core(*ops)
+        with _stage("device_sync", stages):
+            return bool(ok.item())
+
+
+def _pack_pubkey_grid(sets, S: int, K: int, n: int, inf1):
+    """[S, K] pubkey limb grid, padding lanes at infinity."""
+    pk_rows = []
+    for s in sets:
+        row = [pk.point for pk in s.signing_keys]
+        row += [inf1] * (K - len(row))
+        pk_rows.append(row)
+    pk_rows += [[inf1] * K] * (S - n)
+    flat = [p for row in pk_rows for p in row]
+    px, py, pinf = g1_to_dev(flat)
+    return px.reshape(S, K, 48), py.reshape(S, K, 48), pinf.reshape(S, K)
+
+
+def _hash_messages(messages, S: int, inf2):
+    """(mx, my, minf) for the S padded rows: the host oracle hashes each
+    distinct message once; rows gather from the distinct batch."""
+    plan = dedup_plan(messages)
+    memo = [hash_to_g2(m) for m in plan.distinct]
+    rows = [memo[j] for j in plan.index] + [inf2] * (S - len(messages))
+    return g2_to_dev(rows)
