@@ -6,8 +6,10 @@
 // performs a final reduction to [0, p), which is what keeps every result
 // bit-identical to the JAX reference (lighthouse_tpu/ops/limb.py).
 //
-// The fused kernels of later slices inline these functions; kernel K1
-// (mont_mul.cu) is a thin loop around fp_load / fp_mul / fp_store.
+// Kernel K1 (mont_mul.cu) is a thin loop around fp_load / fp_mul / fp_store;
+// the fused kernels reach these functions through tower.cuh. The word loops
+// stay unrolled and inlined here; the tower and group-law functions above
+// them are out of line, which keeps each kernel's build to seconds.
 
 #pragma once
 
@@ -32,6 +34,19 @@ __device__ __constant__ const uint32_t kTwoP[kWords] = {
 
 // -p^{-1} mod 2^32: the per-word Montgomery quotient constant.
 constexpr uint32_t kNInv = 0xfffcfffdu;
+
+// R mod p = 2^384 mod p: one in Montgomery form (ops/field.py R_LIMBS).
+__device__ __constant__ const uint32_t kOne[kWords] = {
+    0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
+    0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u,
+    0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
+
+// p - 2, the Fermat inversion exponent; its top set bit is bit 380.
+__device__ __constant__ const uint32_t kPMinus2[kWords] = {
+    0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
+    0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
+    0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+constexpr int kPMinus2TopBit = 380;
 
 // 48 int32 byte limbs (each in [0, 255]) -> 12 words, packed in registers.
 // `src` points at the value's 48 limbs as 12 int4 (16-byte aligned).
@@ -144,6 +159,81 @@ __device__ __forceinline__ void fp_sub(uint32_t r[kWords],
     r[j] = (uint32_t)c;
     c >>= 32;
   }
+}
+
+// r = -a, closed on [0, 2p): 0 -> 0, else 2p - a (ops/field.py neg, which
+// is sub(0, a)).
+__device__ __forceinline__ void fp_neg(uint32_t r[kWords],
+                                       const uint32_t a[kWords]) {
+  uint32_t z[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) z[j] = 0u;
+  fp_sub(r, z, a);
+}
+
+__device__ __forceinline__ void fp_double(uint32_t r[kWords],
+                                          const uint32_t a[kWords]) {
+  fp_add(r, a, a);
+}
+
+// r = a reduced into [0, p) (ops/field.py canonical): a - p when a >= p.
+__device__ __forceinline__ void fp_canonical(uint32_t r[kWords],
+                                             const uint32_t a[kWords]) {
+  uint32_t d[kWords];
+  uint64_t br = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const uint64_t x = (uint64_t)a[j] - kP[j] - br;
+    d[j] = (uint32_t)x;
+    br = x >> 63;
+  }
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) r[j] = br ? a[j] : d[j];
+}
+
+// a == 0 mod p for a in [0, 2p): a == 0 or a == p (ops/field.py is_zero).
+__device__ __forceinline__ bool fp_is_zero(const uint32_t a[kWords]) {
+  uint32_t z = 0u, q = 0u;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    z |= a[j];
+    q |= a[j] ^ kP[j];
+  }
+  return z == 0u || q == 0u;
+}
+
+// a == b mod p (ops/field.py eq): equal canonical representatives.
+__device__ __forceinline__ bool fp_eq(const uint32_t a[kWords],
+                                      const uint32_t b[kWords]) {
+  uint32_t ca[kWords], cb[kWords];
+  fp_canonical(ca, a);
+  fp_canonical(cb, b);
+  uint32_t d = 0u;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) d |= ca[j] ^ cb[j];
+  return d == 0u;
+}
+
+// r = a^(p-2) = a^-1 (0 -> 0) by left-to-right square-and-multiply over the
+// bits of p - 2 below its top bit, skipping the multiply on zero bits: the
+// schedule of ops/field.py mont_inv, so the limbs are the same.
+__device__ __forceinline__ void fp_inv(uint32_t r[kWords],
+                                       const uint32_t a[kWords]) {
+  uint32_t acc[kWords], t[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) acc[j] = a[j];
+#pragma unroll 1
+  for (int i = kPMinus2TopBit - 1; i >= 0; --i) {
+    fp_mul(t, acc, acc);
+    if ((kPMinus2[i >> 5] >> (i & 31)) & 1u) {
+      fp_mul(acc, t, a);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) acc[j] = t[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) r[j] = acc[j];
 }
 
 }  // namespace fp

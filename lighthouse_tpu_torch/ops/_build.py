@@ -5,8 +5,10 @@ Each kernel source under ``lighthouse_tpu_torch/csrc/`` compiles with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Builds happen at
 first use, never at import, into ``lighthouse_tpu_torch/_build/`` (listed
 in ``.gitignore``); the file name carries a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one loads as it is. A failed
-build raises with the compiler's output: there is no fallback.
+so an edited source rebuilds and an unchanged one loads as it is (a header
+edit rebuilds every source). A failed build raises with the compiler's
+output: there is no fallback. ``ptxas -v`` reports each kernel's registers,
+spills and stack into the build log beside the library.
 
 :data:`KERNELS` registers every kernel wrapper with its launch count, so a
 script (``chip_smoke.py``) can build them all in parallel, zero the counts
@@ -30,7 +32,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -64,30 +66,37 @@ class CudaLibrary:
     def path(self) -> Path:
         return BUILD_DIR / f"lib{self.source.stem}-{self._digest()}.so"
 
+    @property
+    def build_log(self) -> str:
+        """The compiler's output of the build of :attr:`path` ("" if none)."""
+        log = self.path.with_suffix(".log")
+        return log.read_text() if log.is_file() else ""
+
     def start_build(self) -> subprocess.Popen | None:
-        """Start ``nvcc`` for this source; None when already built."""
+        """Start ``nvcc`` for this source, its output into a log file beside
+        the library; None when already built."""
         if self.path.is_file():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
+        log = self.path.with_suffix(".log").open("w")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
                "-o", str(tmp), str(self.source)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        log.close()
         proc.lh_tmp = tmp  # type: ignore[attr-defined]
         return proc
 
     def finish_build(self, proc: subprocess.Popen | None) -> None:
         if proc is None:
             return
-        out, _ = proc.communicate()
+        proc.wait()
         tmp = proc.lh_tmp  # type: ignore[attr-defined]
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
                 f"nvcc failed on {self.source.name} "
-                f"(exit {proc.returncode}):\n{out}"
+                f"(exit {proc.returncode}):\n{self.build_log}"
             )
         os.replace(tmp, self.path)
 
@@ -124,14 +133,21 @@ def register(kernel: Kernel) -> Kernel:
     return kernel
 
 
-def build_all() -> float:
+def build_all() -> dict[str, float]:
     """Build every registered kernel, one ``nvcc`` per source, all started
-    together. Returns the wall seconds; raises if any build fails."""
+    together. Returns {source name: seconds from the common start until its
+    build ended (0 when it was built already)}; raises if any build fails."""
     t0 = time.perf_counter()
-    libs = {id(k.library): k.library for k in KERNELS}.values()
-    procs = [(lib, lib.start_build()) for lib in libs]
+    libs = list({id(k.library): k.library for k in KERNELS}.values())
+    procs = {lib.source.name: (lib, lib.start_build()) for lib in libs}
+    seconds = {}
+    while len(seconds) < len(procs):
+        for name, (_, proc) in procs.items():
+            if name not in seconds and (proc is None or proc.poll() is not None):
+                seconds[name] = 0.0 if proc is None else time.perf_counter() - t0
+        time.sleep(0.05)
     errors = []
-    for lib, proc in procs:
+    for lib, proc in procs.values():
         try:
             lib.finish_build(proc)
         except RuntimeError as exc:
@@ -140,7 +156,7 @@ def build_all() -> float:
         raise RuntimeError("\n".join(errors))
     for lib in libs:
         lib.load()
-    return time.perf_counter() - t0
+    return seconds
 
 
 def reset_launches() -> None:

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..crypto.bls.constants import G1_X, G1_Y, R as CURVE_ORDER
+from ..crypto.bls.constants import G1_X, G1_Y, R as CURVE_ORDER, X as X_BLS
 from . import field, tower
 from .field import const
 
@@ -269,6 +269,40 @@ def pt_subgroup_check(F, P):
     """[r]P == infinity; batched. Infinity itself passes (callers mask
     separately where the spec says otherwise)."""
     return pt_is_infinity(F, pt_scalar_mul_const(F, P, CURVE_ORDER))
+
+
+# Bits of |x| (x = X_BLS < 0, the BLS parameter) below its leading one, MSB
+# first: the static schedule of every x-chain (this subgroup check, the
+# Miller loop, the cyclotomic power of the final exponentiation). The
+# leading one is the chain's initial value; each bit then doubles, and a one
+# bit adds.
+X_BITS = bin(-X_BLS)[3:]
+
+
+def subgroup_check_g2_fast(x, y, inf):
+    """G2 membership by the psi criterion, psi(Q) == [x]Q, per lane: the plain
+    version of kernel K4 (reference: ``tkernel_calls._subgroup_fast_kernel``).
+
+    x, y: affine Fp2 [..., 2, 48] on the curve; inf: bool [...]. [|x|]Q on
+    |x|'s static bits, negated (x < 0), compared with psi(Q) without an
+    inversion; [x]Q at infinity fails a finite Q. Infinity passes, as in
+    :func:`pt_subgroup_check`."""
+    F = FP2_OPS
+    acc = pt_from_affine(F, x, y, inf)  # the leading bit of |x|
+    for bit in X_BITS:
+        acc = pt_double(F, acc)
+        if bit == "1":
+            acc = pt_add_mixed(F, acc, (x, y), inf)
+    xj, yj, zj = acc
+    yj = F.neg(yj)
+    px, py = F.muln(
+        (tower.fp2_conj(x), const(PSI_CX_DEV, x.device)),
+        (tower.fp2_conj(y), const(PSI_CY_DEV, x.device)),
+    )
+    z2 = F.sqr(zj)
+    z3 = F.mul(z2, zj)
+    lx, ly = F.muln((px, z2), (py, z3))
+    return (F.eq(lx, xj) & F.eq(ly, yj) & ~F.is_zero(zj)) | inf
 
 
 # -------------------------------------------------------------- reductions

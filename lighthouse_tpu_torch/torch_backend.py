@@ -1,13 +1,22 @@
 """PyTorch/CUDA BLS backend: ``verify_signature_sets`` on an H100.
 
-Port of the classic verify path of ``lighthouse_tpu/jax_backend.py``
-(``JaxBackend._dispatch`` with ``LHTPU_FUSED_VERIFY=0``,
-``LHTPU_PALLAS_MONT_MUL=1``, ``LHTPU_DEVICE_HTC=0``): the whole batch check
+Port of the verify paths of ``lighthouse_tpu/jax_backend.py``
+(``JaxBackend._dispatch`` with ``LHTPU_MSM_VERIFY=0``,
+``LHTPU_DEVICE_HTC=0``): the whole batch check
 
     prod_i e([r_i] agg_pk_i, H(m_i)) * e(-g1, sum_i [r_i] sig_i) == 1
 
-plus the signature subgroup checks runs as tensor code on one device, with
-every Fp multiply going through kernel K1 (``ops/mont_mul.py``) on the card.
+plus the signature subgroup checks runs on one device, in one of two
+configurations:
+
+* **fused** (``LHTPU_FUSED_VERIFY=1``, the default on the card): each long
+  chain (to-affine, scalar multiplication, psi-criterion subgroup check,
+  Miller loop, final exponentiation) is one launch of a CUDA kernel
+  (``ops/tkernel_calls.py``); the log-depth trees between them stay tensor
+  code on kernel K1;
+* **classic** (``LHTPU_FUSED_VERIFY=0``, the default on the CPU): all of it
+  is tensor code, every Fp multiply going through kernel K1
+  (``ops/mont_mul.py``) on the card.
 
 * Static shapes: sets pad to S (power of two), keys per set to K; padding
   lanes are points at infinity, the neutral element everywhere.
@@ -21,9 +30,10 @@ Sets are read by duck typing (``.signature.point``,
 ``.signature.is_infinity()``, ``.signing_keys[i].point``, ``.message``), so
 the JAX package's set objects work unchanged.
 
-The Python loops here issue many small launches per verify (the Miller
-steps, the 255-step subgroup check, the Fermat inversions): on the card this
-path is bound by launch overhead, not by K1.
+The classic path's Python loops issue many small launches per verify (the
+Miller steps, the 255-step subgroup check, the Fermat inversions): on the
+card it is bound by launch overhead, not by K1. The fused path is what the
+card runs by default, as the JAX package runs fused on its accelerator.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from .crypto.bls.curve import g1_infinity, g2_infinity
 from .crypto.bls.hash_to_curve import hash_to_g2
 from .dedup import dedup_plan
 from .ops import field
+from .ops import tkernel_calls as tc
 from .ops.field import const
 from .ops.pairing import final_exponentiation, fp12_tree_prod, miller_loop
 from .ops.points import (
@@ -56,7 +67,7 @@ from .ops.points import (
     pt_tree_sum,
     pt_tree_sum_axis,
 )
-from .ops.tower import fp12_is_one
+from .ops.tower import FP12_ONE, fp12_is_one
 
 
 def next_pow2(n: int) -> int:
@@ -95,13 +106,35 @@ def _pad_pair_lanes(g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf, pad: int):
     return g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf
 
 
-def aggregate_pubkeys(pk, pk_inf):
-    """Per-set pubkey aggregation: a K-leaf binary tree of Jacobian adds,
-    then canonical affine. pk: (x, y) [S, K, 48]; pk_inf: bool [S, K]."""
+def _aggregate_jacobian(pk, pk_inf):
+    """Per-set pubkey aggregation: a K-leaf binary tree of Jacobian adds.
+    pk: (x, y) [S, K, 48]; pk_inf: bool [S, K]. Returns Jacobian [S]."""
     K = pk_inf.shape[1]
     pk_j = pt_from_affine(FP_OPS, pk[0], pk[1], pk_inf)
-    agg = pt_tree_sum_axis(FP_OPS, pk_j, axis=1, axis_size=K)  # [S]
-    return pt_to_affine(FP_OPS, agg)
+    return pt_tree_sum_axis(FP_OPS, pk_j, axis=1, axis_size=K)
+
+
+def aggregate_pubkeys(pk, pk_inf):
+    """Per-set aggregate pubkeys in canonical affine form."""
+    return pt_to_affine(FP_OPS, _aggregate_jacobian(pk, pk_inf))
+
+
+def _pair_operands(rpk_aff, sig_acc_aff, msg, msg_inf):
+    """The multi-pairing's S + 1 lanes: (G1 x, y, inf, G2 x, y, inf).
+
+    Lanes 0..S-1 pair [r_i] agg_pk_i with H(m_i); lane S pairs -g1 with the
+    signature accumulator."""
+    dev = msg_inf.device
+    gx = const(G1_GEN_DEV[0], dev).unsqueeze(0)
+    gy = field.neg(const(G1_GEN_DEV[1], dev)).unsqueeze(0)
+    return (
+        torch.cat([rpk_aff[0], gx]),
+        torch.cat([rpk_aff[1], gy]),
+        torch.cat([rpk_aff[2], torch.zeros(1, dtype=torch.bool, device=dev)]),
+        torch.cat([msg[0], sig_acc_aff[0]]),
+        torch.cat([msg[1], sig_acc_aff[1]]),
+        torch.cat([msg_inf, sig_acc_aff[2]]),
+    )
 
 
 @torch.inference_mode()
@@ -120,7 +153,6 @@ def _verify_core(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits):
     Returns a 0-dim bool tensor on the operands' device (not synchronized).
     """
     S = pk_inf.shape[0]
-    dev = pk_inf.device
     agg_aff = aggregate_pubkeys(pk, pk_inf)
 
     # RLC: [r_i] agg_pk_i and [r_i] sig_i (64-bit double-and-add).
@@ -138,18 +170,9 @@ def _verify_core(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits):
 
     # Multi-pairing: S set pairs + 1 check pair, padded to a power of two.
     rpk_aff = pt_to_affine(FP_OPS, rpk)
-    gx = const(G1_GEN_DEV[0], dev).unsqueeze(0)
-    gy = field.neg(const(G1_GEN_DEV[1], dev)).unsqueeze(0)
-    g1_x = torch.cat([rpk_aff[0], gx])
-    g1_y = torch.cat([rpk_aff[1], gy])
-    g1_inf = torch.cat([rpk_aff[2], torch.zeros(1, dtype=torch.bool, device=dev)])
-    g2_x = torch.cat([msg[0], sig_acc_aff[0]])
-    g2_y = torch.cat([msg[1], sig_acc_aff[1]])
-    g2_inf = torch.cat([msg_inf, sig_acc_aff[2]])
-
     M = next_pow2(S + 1)
     g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf = _pad_pair_lanes(
-        g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf, M - (S + 1)
+        *_pair_operands(rpk_aff, sig_acc_aff, msg, msg_inf), M - (S + 1)
     )
 
     f = miller_loop((g1_x, g1_y), g1_inf, (g2_x, g2_y), g2_inf)
@@ -158,11 +181,49 @@ def _verify_core(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits):
     return fp12_is_one(f) & sub_ok
 
 
+@torch.inference_mode()
+def _verify_core_fused(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits):
+    """The device program of the fused path (reference:
+    ``jax_backend._verify_core_fused`` with ``msm_idx=None``, ``axis=None``):
+    the contract of :func:`_verify_core`, the same verdict.
+
+    Each chain is one kernel (``ops/tkernel_calls.py``; on CPU tensors, its
+    plain version); the aggregation and product trees between them stay
+    tensor code. The Miller kernel takes exactly S + 1 lanes; the padding to
+    a power of two for the product tree is Fp12 ones, after it."""
+    S = pk_inf.shape[0]
+    dev = pk_inf.device
+    ax, ay, ainf = tc.to_affine_g1(_aggregate_jacobian(pk, pk_inf))
+
+    rpk = tc.scalar_mul_g1(ax, ay, ainf, r_bits)
+    rsig = tc.scalar_mul_g2(sig[0], sig[1], sig_inf, r_bits)
+    sub_ok = tc.subgroup_check_g2_fast(sig[0], sig[1], sig_inf).all()
+
+    sig_acc = pt_tree_sum(FP2_OPS, rsig, S)
+    sig_acc_aff = tc.to_affine_g2(tuple(c.unsqueeze(0) for c in sig_acc))
+    rpk_aff = tc.to_affine_g1(rpk)
+
+    g1_x, g1_y, g1_inf, g2_x, g2_y, g2_inf = _pair_operands(
+        rpk_aff, sig_acc_aff, msg, msg_inf
+    )
+    f = tc.miller_loop((g1_x, g1_y), g1_inf, (g2_x, g2_y), g2_inf)
+    M = next_pow2(S + 1)
+    one = const(FP12_ONE, dev)
+    f = torch.cat([f, one.expand(M - (S + 1), *one.shape)])
+    f = fp12_tree_prod(f, M)
+    f = tc.final_exp_kernel(f.unsqueeze(0))[0]
+    return fp12_is_one(f) & sub_ok
+
+
 class TorchBackend:
     """Batch verifier on one device: the card unless ``device`` says
-    otherwise (``device="cpu"`` runs the plain versions of the kernels)."""
+    otherwise (``device="cpu"`` runs the plain versions of the kernels).
 
-    def __init__(self, device=None):
+    ``fused``: True runs the fused path, False the classic one; None (the
+    default) picks fused on the card and classic on the CPU, as the JAX
+    package picks fused on its accelerator only."""
+
+    def __init__(self, device=None, fused=None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -171,6 +232,8 @@ class TorchBackend:
                 )
             device = "cuda"
         self.device = torch.device(device)
+        self.fused = self.device.type == "cuda" if fused is None else bool(fused)
+        self._core = _verify_core_fused if self.fused else _verify_core
         # Stage -> seconds of the most recent verify: pack / hash_to_curve /
         # scalars / dispatch / device_sync (empty after a host reject).
         self.last_stage_seconds: dict = {}
@@ -208,7 +271,7 @@ class TorchBackend:
                 px, py, pinf, sx, sy, sinf, mx, my, minf, r_bits, self.device
             )
             self.last_operand_device = ops[1].device
-            ok = _verify_core(*ops)
+            ok = self._core(*ops)
         with _stage("device_sync", stages):
             return bool(ok.item())
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions.
+"""The port's CUDA kernels (K1 and the fused kernels) against their plain
+PyTorch versions.
 
 Imports only torch, numpy and the port, so it also runs on a GPU machine
 without JAX:
@@ -14,7 +15,11 @@ import pytest
 import torch
 
 from lighthouse_tpu_torch.crypto.bls.constants import P
-from lighthouse_tpu_torch.ops import field, mont_mul
+from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator
+from lighthouse_tpu_torch.crypto.bls.fields import Fq2
+from lighthouse_tpu_torch.crypto.bls.hash_to_curve import map_to_curve_g2
+from lighthouse_tpu_torch.ops import field, mont_mul, pairing, points
+from lighthouse_tpu_torch.ops import tkernel_calls as tc
 
 R = 1 << 384
 EDGES = [0, 1, P - 1, P, 2 * P - 1, R % P]
@@ -85,3 +90,102 @@ def test_kernel_edges_and_broadcast():
     assert odd.data_ptr() % 16
     assert torch.equal(mont_mul.mont_mul_cuda(odd, b[:5]),
                        mont_mul.mont_mul_plain(odd, b[:5]))
+
+
+# ------------------------------------------------------ the fused kernels
+# Each fused kernel (ops/tkernel_calls.py) against its plain version on the
+# same CUDA tensors, at small shapes with the edge lanes of the verify path:
+# infinity, Z = 1, scalars 0, 1 and 2^64 - 1, points outside G2. Raw limbs
+# must be equal (the CUDA tower follows ops/tower.py op for op), which
+# implies equality after canonical.
+
+SCALARS = [0, 1, (1 << 64) - 1, 0x9E3779B97F4A7C15]
+
+
+def _cuda(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+
+
+def _group(name):
+    if name == "g1":
+        return g1_generator(), points.FP_OPS, points.g1_to_dev, tc.K3_G1
+    return g2_generator(), points.FP2_OPS, points.g2_to_dev, tc.K3_G2
+
+
+def _same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_scalar_mul_and_to_affine_kernels_match_plain(group):
+    _card()
+    gen, F, pack, k3 = _group(group)
+    x, y, inf = _cuda(*pack([gen.mul(k) for k in (2, 3, 5, 7, 11)]))
+    inf[4] = True
+    bits = _cuda(points.scalars_to_bits(SCALARS + [5], 64))[0]
+    mul = tc.scalar_mul_g1 if group == "g1" else tc.scalar_mul_g2
+    before = k3.launches
+    J = mul(x, y, inf, bits)
+    assert k3.launches == before + 1
+    assert _same(J, points.pt_scalar_mul_bits(F, (x, y), inf, bits))
+    one = points.pt_from_affine(F, x[1:2], y[1:2])  # lane 1 at Z = 1
+    J = tuple(torch.cat([c[:1], o, c[2:]]) for o, c in zip(one, J))
+    aff = tc.to_affine_g1 if group == "g1" else tc.to_affine_g2
+    got = aff(J)
+    assert _same(got, points.pt_to_affine(F, J))
+    assert got[2].tolist() == [True, False, False, False, True]  # [0]Q, inf
+
+
+@pytest.mark.cuda
+def test_subgroup_fast_kernel_matches_plain_and_full_order():
+    _card()
+    g = g2_generator()
+    pts = [g.mul(3), map_to_curve_g2(Fq2(2, 1)), g.mul(12345),
+           map_to_curve_g2(Fq2(5, 7)), g.mul(9)]
+    x, y, inf = _cuda(*points.g2_to_dev(pts))
+    inf[4] = True
+    got = tc.subgroup_check_g2_fast(x, y, inf)
+    assert _same(got, points.subgroup_check_g2_fast(x, y, inf))
+    full = points.pt_subgroup_check(points.FP2_OPS,
+                                    points.pt_from_affine(points.FP2_OPS, x, y, inf))
+    assert got.tolist() == full.tolist() == [True, False, True, False, True]
+
+
+@pytest.mark.cuda
+def test_miller_and_final_exp_kernels_match_plain():
+    _card()
+    g1, g2 = g1_generator(), g2_generator()
+    px, py, pinf = _cuda(*points.g1_to_dev([g1.mul(k) for k in (3, 4, 5)]))
+    qx, qy, qinf = _cuda(*points.g2_to_dev([g2.mul(k) for k in (6, 7, 8)]))
+    pinf[1] = True
+    qinf[2] = True
+    f = tc.miller_loop((px, py), pinf, (qx, qy), qinf)
+    assert _same(f, tc.miller_loop_seg((px, py), pinf, (qx, qy), qinf))
+    g = tc.easy_exp(f)
+    assert _same(g, tc.easy_exp_plain(f))
+    for xm1 in (False, True):
+        assert _same(tc.pow_x(g, xm1), tc.pow_x_plain(g, xm1))
+    for mode in tc.COMB_MODES:
+        assert _same(tc.comb(f, g, mode), tc.comb_plain(f, g, mode))
+    assert _same(tc.final_exp_kernel(f[:1]), pairing.final_exponentiation(f[:1]))
+
+
+@pytest.mark.cuda
+def test_fused_kernels_launch_nothing_on_zero_lanes():
+    _card()
+    e1 = torch.empty(0, 48, dtype=torch.int32, device="cuda")
+    e2 = torch.empty(0, 2, 48, dtype=torch.int32, device="cuda")
+    m = torch.empty(0, dtype=torch.bool, device="cuda")
+    f = torch.empty(0, 2, 3, 2, 48, dtype=torch.int32, device="cuda")
+    b = torch.empty(0, 64, dtype=torch.int32, device="cuda")
+    before = {k.name: k.launches for k in tc._build.KERNELS}
+    assert tc.to_affine_g2((e2, e2, e2))[0].shape == (0, 2, 48)
+    assert tc.scalar_mul_g1(e1, e1, m, b)[2].shape == (0, 48)
+    assert tc.subgroup_check_g2_fast(e2, e2, m).shape == (0,)
+    assert tc.miller_loop((e1, e1), m, (e2, e2), m).shape == (0, 2, 3, 2, 48)
+    assert tc.comb(f, f, "b").shape == (0, 2, 3, 2, 48)
+    assert {k.name: k.launches for k in tc._build.KERNELS} == before
