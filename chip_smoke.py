@@ -12,25 +12,36 @@ In order, and failing (nonzero exit, no result line) at the first fault:
 3. K1 against its plain PyTorch version: bit equality on 2^20 random values
    in [0, 2p) plus the edge rows, big-int agreement on a sample, timings
    (CUDA events, median of repetitions);
-4. each fused kernel (K2-K4, K8-K11) against its plain version on the card,
-   at the shapes the fused path gives it and with its edge lanes (infinity,
-   Z = 1, scalars 0, 1 and 2^64-1, points outside G2): equality after
-   ``canonical`` (and whether the raw limbs match), K4 also against the
-   full-order subgroup check, the final-exponentiation chain also against
-   the classic ``pairing.final_exponentiation``; kernel and plain times;
-5. the fused path, the card's default, through the user entry point
+4. each fused verify kernel (K2-K4, K8-K11) against its plain version on the
+   card, at the shapes the fused path gives it and with its edge lanes
+   (infinity, Z = 1, scalars 0, 1 and 2^64-1, points outside G2): equality
+   after ``canonical`` (and whether the raw limbs match), K4 also against
+   the full-order subgroup check, the final-exponentiation chain also
+   against the classic ``pairing.final_exponentiation``; kernel and plain
+   times;
+5. the hash kernels (K12 resident map, K13 SSWU + isogeny, K14 cofactor)
+   against their plain versions at the shapes the batch's 128 distinct
+   messages give them and on edge lanes (u = 0 on both halves, u0 == u1,
+   a lane at infinity, the RFC 9380 J.10.1 messages), both SSWU branches
+   among the lanes; K12 + K2 against the RFC vectors; the device hash,
+   resident and chained, against the oracle's points of all 128 messages;
+6. the main path, the card's default, through the user entry point
    ``TorchBackend().verify_signature_sets`` at a mainnet block's size:
-   S=128 aggregate attestations of K=512 keys. The valid batch must verify
-   True, the batch with two signatures swapped False, two small batches
-   must agree with the pure-Python oracle;
-6. the classic path (``TorchBackend(fused=False)``) on the same valid and
-   swapped batches, and both paths on the same small batches, against the
-   oracle;
-7. the ``kernels`` JSON line, the nvidia-smi line, and the result line.
+   S=128 aggregate attestations of K=512 keys, fused verify with the device
+   hash (K12). The valid batch must verify True, the batch with two
+   signatures swapped False;
+7. the same valid batch with the host oracle's hash (``device_htc=False``),
+   for the before and after on one card, and the classic configuration
+   (``fused=False, device_htc=False``) on the valid and swapped batches;
+8. two small batches through every configuration, the chained hash
+   (``htc_resident=False``) among them, against the pure-Python oracle;
+9. the ``kernels`` JSON line, the nvidia-smi line, and the result line.
 
 Kernel launch counts are zeroed just before each verify and read just after
-it. Each path has its own list: the fused path must launch every kernel
-(K1-K4, K8-K11), the classic path K1 and none of the fused kernels.
+it. Each configuration has its list: the fused path with the device hash
+must launch K1-K4, K8-K12 and not K13 or K14; with the chained hash K13 and
+K14 and not K12; with the host hash none of K12-K14; the classic path K1
+and none of the others.
 
 Imports nothing of JAX or of the JAX package. Data comes from a seeded
 numpy generator (secret keys sk_i = base + i, so pk_{i+1} = pk_i + G1).
@@ -59,6 +70,30 @@ N_VALUES = 1 << 20          # products in the K1-vs-plain check
 REPS = 20                   # timed repetitions of K1
 KERNEL_REPS = 5             # timed repetitions of a fused kernel
 PLAIN_REPS = 3              # of a plain version (launch-bound, seconds)
+
+# RFC 9380 J.10.1, suite BLS12381G2_XMD:SHA-256_SSWU_RO_: message -> affine
+# ((x.c0, x.c1), (y.c0, y.c1)) under the RFC's own DST.
+RFC_DST = b"QUUX-V01-CS02-with-BLS12381G2_XMD:SHA-256_SSWU_RO_"
+RFC_J10_1 = {
+    b"": (
+        (0x0141EBFBDCA40EB85B87142E130AB689C673CF60F1A3E98D69335266F30D9B8D4AC44C1038E9DCDD5393FAF5C41FB78A,
+         0x05CB8437535E20ECFFAEF7752BADDF98034139C38452458BAEEFAB379BA13DFF5BF5DD71B72418717047F5B0F37DA03D),
+        (0x0503921D7F6A12805E72940B963C0CF3471C7B2A524950CA195D11062EE75EC076DAF2D4BC358C4B190C0C98064FDD92,
+         0x12424AC32561493F3FE3C260708A12B7C620E7BE00099A974E259DDC7D1F6395C3C811CDD19F1E8DBF3E9ECFDCBAB8D6),
+    ),
+    b"abc": (
+        (0x02C2D18E033B960562AAE3CAB37A27CE00D80CCD5BA4B7FE0E7A210245129DBEC7780CCC7954725F4168AFF2787776E6,
+         0x139CDDBCCDC5E91B9623EFD38C49F81A6F83F175E80B06FC374DE9EB4B41DFE4CA3A230ED250FBE3A2ACF73A41177FD8),
+        (0x1787327B68159716A37440985269CF584BCB1E621D3A7202BE6EA05C4CFE244AEB197642555A0645FB87BF7466B2BA48,
+         0x00AA65DAE3C8D732D10ECD2C50F8A1BAF3001578F71C694E03866E9F3D49AC1E1CE70DD94A733534F106D4CEC0EDDD16),
+    ),
+    b"abcdef0123456789": (
+        (0x121982811D2491FDE9BA7ED31EF9CA474F0E1501297F68C298E9F4C0028ADD35AEA8BB83D53C08CFC007C1E005723CD0,
+         0x190D119345B94FBD15497BCBA94ECF7DB2CBFD1E1FE7DA034D26CBBA169FB3968288B3FAFB265F9EBD380512A71C3F2C),
+        (0x05571A0F8D3C08D094576981F4A3B8EDA0A8E771FCDCC8ECCEAF1356A6ACF17574518ACB506E435B639353C2E14827C8,
+         0x0BB5E7572275C567462D91807DE765611490205A941A5A6AF3B1691BFE596C31225D3AABDF15FAFF860CB4EF17C7C3BE),
+    ),
+}
 
 
 def log(msg: str) -> None:
@@ -306,7 +341,54 @@ def fp_product_counts(P: int) -> dict:
     c["dbl_step"] = 6 * c["fp2_sqr"] + 5 * c["fp2_mul"]
     c["add_step"] = 5 * c["fp2_sqr"] + 9 * c["fp2_mul"]
     c["sparse"] = 4 + 13 * c["fp2_mul"]
+    # hash kernels (csrc/htc.cuh): the complete addition 5 squares + 11
+    # products; the sqrt_ratio power over E = (p^2-9)/16; its fixed prefix
+    # (2 squares, 6 products); a candidate check (a product, a square, a
+    # product); the Z candidates' set-up (2 products); the SSWU glue before
+    # sqrt_ratio (4 squares, 9 products); the non-square legs (3 products);
+    # sgn0 (2 Fp products each, twice); the isogeny (power tables, 15
+    # polynomial terms of 2 products, the Jacobian packing)
+    e = (P * P - 9) // 16
+    c["add_g2"] = 5 * c["fp2_sqr"] + 11 * c["fp2_mul"]
+    c["pow_e"] = (e.bit_length() - 1) * c["fp2_sqr"] + (bin(e).count("1") - 1) * c["fp2_mul"]
+    c["sqrt_fixed"] = 2 * c["fp2_sqr"] + 6 * c["fp2_mul"]
+    c["cand_check"] = 2 * c["fp2_mul"] + c["fp2_sqr"]
+    c["z_setup"] = 2 * c["fp2_mul"]
+    c["sswu_fixed"] = 4 * c["fp2_sqr"] + 9 * c["fp2_mul"]
+    c["non_square"] = 3 * c["fp2_mul"]
+    c["sgn0"] = 2 * 2
+    c["iso"] = 2 * (c["fp2_sqr"] + c["fp2_mul"]) + 15 * 2 * c["fp2_mul"] \
+        + 3 * c["fp2_sqr"] + 8 * c["fp2_mul"]
+    c["cofactor"] = 127 * c["dbl_g2"] + 15 * c["add_g2"] + 3 * 2 * c["fp2_mul"]
     return c
+
+
+def sswu_lane_work(u, consts) -> tuple[bool, int]:
+    """(gx1 is a square, candidate checks made) for one u, by the kernels'
+    own sqrt_ratio in the oracle's Fq2 arithmetic: the hits depend on the
+    data, so the bound counts what these lanes need."""
+    A, B, Z, cands, c_z, e = consts
+    tv1 = Z * u.square()
+    tv2 = tv1.square() + tv1
+    num1 = B * (tv2 + type(u).one())
+    den = Z * A if tv2.is_zero() else -(A * tv2)
+    gxn = num1.square() * num1 + A * num1 * den.square() + B * den.square() * den
+    gxd = den.square() * den
+    t = gxn * gxd.pow(7) * (gxn * gxd.pow(15)).pow(e)
+    for i, cand in enumerate(cands):
+        if (t * cand).square() * gxd == gxn:
+            return True, i + 1
+    for i, cand in enumerate(cands):
+        if (t * c_z * cand).square() * gxd == Z * gxn:
+            return False, 5 + i
+    return False, 8
+
+
+def sswu_products(c: dict, work) -> int:
+    """Fp products of the SSWU + isogeny body for one u."""
+    is_sq, checks = work
+    return (c["sswu_fixed"] + c["sqrt_fixed"] + c["pow_e"] + checks * c["cand_check"]
+            + (0 if is_sq else c["z_setup"] + c["non_square"]) + c["sgn0"] + c["iso"])
 
 
 def scalar_mul_products(np, c: dict, g: str, inf, bits) -> int:
@@ -512,7 +594,111 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     return out
 
 
-# ----------------------------------------------------- phases 5-6: paths
+# ------------------------------------------------- phase 5: hash kernels
+
+
+def hash_edge_inputs(torch, np, msgs):
+    """Edge lanes of the hash: u = 0 on both halves, u0 == u1 (Q0 + Q1
+    takes the doubling), then the RFC 9380 J.10.1 messages under their DST."""
+    from lighthouse_tpu_torch.ops import htc
+
+    u = htc.hash_to_field_dev(msgs[:1])
+    twin = np.repeat(u[:, :1], 2, axis=1)
+    rfc = htc.hash_to_field_dev(list(RFC_J10_1), RFC_DST)
+    return torch.from_numpy(np.concatenate([np.zeros_like(u), twin, rfc])).cuda()
+
+
+def check_hash_kernels(torch, np, sets, hashes) -> dict:
+    """K12, K13 and K14 against their plain versions on the card, at the
+    shapes the 128 distinct messages of the batch give them (K12 at 128
+    lanes, K13 at the chained route's 256 u-halves, K14 at 128) and on the
+    edge lanes; the device hash, resident and chained, against the oracle's
+    points and the RFC vectors. Returns {kernel name: kernels-line entry}."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.crypto.bls.fields import Fq2
+    from lighthouse_tpu_torch.ops import htc, points, tower
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+    from lighthouse_tpu_torch.ops import tkernel_htc as th
+
+    c = fp_product_counts(P)
+    msgs = [s.message for s in sets]
+    n = len(msgs)
+    t0 = time.perf_counter()
+    us_np = htc.hash_to_field_dev(msgs)
+    log(f"hash_to_field_dev (host) for {n} messages: "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+    us = torch.from_numpy(us_np).cuda()
+
+    A, B, Z, cands = htc.sswu_derived_constants()
+    e = htc.SQRT_RATIO_E
+    consts = (A, B, Z, cands, Z.pow(1 + e), e)
+    work = [[sswu_lane_work(Fq2(*tower.fp2_from_dev(us_np[i, j])), consts)
+             for j in range(2)] for i in range(n)]
+    squares = sum(w[0] for row in work for w in row)
+    if not 0 < squares < 2 * n:
+        raise AssertionError("the batch's u-halves do not cover both SSWU branches")
+    log(f"SSWU branches over the {2 * n} u-halves: gx1 square on {squares}, "
+        f"non-square on {2 * n - squares}; candidate checks "
+        f"{sum(w[1] for row in work for w in row)}")
+    k13_products = sum(sswu_products(c, w) for row in work for w in row)
+    out = {}
+
+    out[th.K12.name] = check_kernel(
+        torch, th.K12, f"K12 map_to_g2 {n} lanes",
+        lambda: th.map_to_g2_resident(us), lambda: th.map_to_g2_resident_plain(us),
+        k13_products + n * (c["add_g2"] + c["cofactor"]), n * (768 + 3 * 384))
+    flat = torch.cat([us[:, 0], us[:, 1]])
+    out[th.K13.name] = check_kernel(
+        torch, th.K13, f"K13 sswu_iso {2 * n} lanes",
+        lambda: th.sswu_iso(flat), lambda: th.sswu_iso_plain(flat),
+        k13_products, 2 * n * (384 + 3 * 384))
+    J = th.sswu_iso_plain(flat)
+    Q = points.pt_add(points.FP2_OPS, tuple(t[:n] for t in J), tuple(t[n:] for t in J))
+    out[th.K14.name] = check_kernel(
+        torch, th.K14, f"K14 cofactor {n} lanes",
+        lambda: th.clear_cofactor(Q), lambda: th.cofactor_plain(Q),
+        n * c["cofactor"], n * 2 * 3 * 384)
+
+    # edge lanes: each kernel against its plain version, not timed
+    edge = hash_edge_inputs(torch, np, msgs)
+    m = edge.shape[0]
+    check_kernel(torch, th.K12, f"K12 map_to_g2 {m} edge lanes",
+                 lambda: th.map_to_g2_resident(edge),
+                 lambda: th.map_to_g2_resident_plain(edge), 0, 0, time_it=False)
+    eflat = torch.cat([edge[:, 0], edge[:, 1]])
+    check_kernel(torch, th.K13, f"K13 sswu_iso {2 * m} edge lanes",
+                 lambda: th.sswu_iso(eflat), lambda: th.sswu_iso_plain(eflat),
+                 0, 0, time_it=False)
+    EJ = th.sswu_iso_plain(eflat)
+    EQ = tuple(t.clone() for t in points.pt_add(
+        points.FP2_OPS, tuple(t[:m] for t in EJ), tuple(t[m:] for t in EJ)))
+    EQ[2][2] = 0  # a lane at infinity
+    check_kernel(torch, th.K14, f"K14 cofactor {m} edge lanes",
+                 lambda: th.clear_cofactor(EQ), lambda: th.cofactor_plain(EQ),
+                 0, 0, time_it=False)
+
+    # the RFC vectors through K12 and K2
+    x, y, inf = tc.to_affine_g2(th.map_to_g2_resident(edge[2:]))
+    x, y, inf = x.cpu().numpy(), y.cpu().numpy(), inf.cpu().numpy()
+    for i, (ex, ey) in enumerate(RFC_J10_1.values()):
+        if inf[i] or tower.fp2_from_dev(x[i]) != ex or tower.fp2_from_dev(y[i]) != ey:
+            raise AssertionError(f"K12 + K2 miss RFC 9380 J.10.1 vector {i}")
+    log(f"K12 + K2 give the {len(RFC_J10_1)} RFC 9380 J.10.1 points")
+
+    # the device hash of the batch's 128 messages, resident and chained,
+    # against the oracle's points (canonical affine limbs)
+    want = points.g2_to_dev(hashes)
+    for resident in (True, False):
+        got = th.hash_to_g2_fused_dev(msgs, resident=resident)
+        for g, w in zip(got, want):
+            if not np.array_equal(g.cpu().numpy(), w):
+                raise AssertionError(f"device hash (resident={resident}) != oracle")
+    log(f"device hash of the {n} messages, resident and chained, equals the "
+        "oracle's hash_to_g2 at canonical affine")
+    return out
+
+
+# ----------------------------------------------------- phases 6-8: paths
 
 
 def run_verify(torch, backend, sets, label: str, must, must_not=()):
@@ -546,27 +732,27 @@ def run_verify(torch, backend, sets, label: str, must, must_not=()):
                 "stages": dict(backend.last_stage_seconds), "gpu": gpu.summary}
 
 
-def verify_path(torch, sets, fused: bool, must, must_not) -> dict:
-    """The valid and the swapped batch through one path."""
+def verify_path(torch, sets, label: str, options: dict, must, must_not,
+                swap: bool = True) -> dict:
+    """The valid batch (and the swapped one) through one configuration of
+    ``TorchBackend(**options)``."""
     from lighthouse_tpu_torch.crypto.bls import api
     from lighthouse_tpu_torch.torch_backend import TorchBackend
 
-    be = TorchBackend() if fused else TorchBackend(fused=False)
-    if be.fused is not fused:
-        raise AssertionError(f"TorchBackend picked fused={be.fused}")
-    name = "fused" if fused else "classic"
+    be = TorchBackend(**options)
     S, K = len(sets), len(sets[0].signing_keys)
-    ok, valid = run_verify(torch, be, sets, f"{name} valid S={S} K={K}", must, must_not)
+    ok, valid = run_verify(torch, be, sets, f"{label} valid S={S} K={K}", must, must_not)
     if ok is not True:
-        raise AssertionError(f"{name}: the valid batch did not verify")
-    bad = swapped(api, sets)
-    ok, poisoned = run_verify(torch, be, bad, f"{name} signatures swapped",
-                              must, must_not)
-    if ok is not False:
-        raise AssertionError(f"{name}: the batch with swapped signatures verified")
-    log(f"{name} path: {valid['seconds']:.3f} s per batch of {S} sets "
+        raise AssertionError(f"{label}: the valid batch did not verify")
+    runs = {"valid": valid}
+    if swap:
+        ok, runs["poisoned"] = run_verify(torch, be, swapped(api, sets),
+                                          f"{label} signatures swapped", must, must_not)
+        if ok is not False:
+            raise AssertionError(f"{label}: the batch with swapped signatures verified")
+    log(f"{label}: {valid['seconds']:.3f} s per batch of {S} sets "
         f"({S / valid['seconds']:.2f} sets/s)")
-    return {"valid": valid, "poisoned": poisoned}
+    return runs
 
 
 def swapped(api, sets):
@@ -576,25 +762,27 @@ def swapped(api, sets):
     return bad
 
 
-def small_batches(torch, sets, must_by_path) -> None:
-    """Both paths on the same two small batches, against the oracle."""
+def small_batches(torch, sets, paths) -> dict:
+    """Every configuration on the same two small batches, against the
+    oracle. Returns each configuration's run of the valid small batch."""
     from lighthouse_tpu_torch.crypto.bls import api
     from lighthouse_tpu_torch.torch_backend import TorchBackend
 
     small = sets[:2]
     small_bad = [sets[0], swapped(api, sets)[1]]
+    runs = {}
     for label, batch in (("small", small), ("small tampered", small_bad)):
         want = api.verify_signature_sets_python(batch)
-        for fused, (must, must_not) in must_by_path.items():
-            be = TorchBackend(fused=fused)
-            got, _ = run_verify(
-                torch, be, batch,
-                f"{'fused' if fused else 'classic'} {label} S=2 "
-                f"K={len(batch[0].signing_keys)}", must, must_not)
+        for name, (options, must, must_not) in paths.items():
+            got, run = run_verify(
+                torch, TorchBackend(**options), batch,
+                f"{name} {label} S=2 K={len(batch[0].signing_keys)}", must, must_not)
             if got is not want:
-                raise AssertionError(f"{label}: port says {got}, oracle {want}")
-    log("small batches: fused and classic paths agree with the pure-Python "
-        "oracle (True, False)")
+                raise AssertionError(f"{name} {label}: port says {got}, oracle {want}")
+            runs.setdefault(name, run)
+    log(f"small batches: {', '.join(paths)} agree with the pure-Python oracle "
+        "(True, False)")
+    return runs
 
 
 # ----------------------------------------------------------------- main
@@ -613,8 +801,9 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, repo)
-    # importing the wrappers registers K1 and the fused kernels
+    # importing the wrappers registers K1, the fused and the hash kernels
     from lighthouse_tpu_torch.ops import _build, mont_mul, tkernel_calls  # noqa: F401
+    from lighthouse_tpu_torch.ops import tkernel_htc as th
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -632,27 +821,52 @@ def main() -> int:
 
     with GpuSampler() as gpu:
         fused = check_fused_kernels(torch, np, sets, hashes)
+        fused.update(check_hash_kernels(torch, np, sets, hashes))
     clock_mhz = gpu.summary["sm_clock_mhz_max"]
     int_rate = INT_MADS_PER_CLOCK * clock_mhz * 1e6
     log(f"SM clock over the kernel checks: max {clock_mhz} MHz (mean "
         f"{gpu.summary['sm_clock_mhz']}); 32-bit integer multiply-add rate "
         f"132 SMs x 64 x clock = {int_rate:.4g}/s")
 
-    names = [k.name for k in _build.KERNELS]
-    fused_names = [n for n in names if n != mont_mul.K1.name]
-    must = {True: (names, ()), False: ([mont_mul.K1.name], fused_names)}
-    fused_runs = verify_path(torch, sets, True, *must[True])
-    classic_runs = verify_path(torch, sets, False, *must[False])
-    small_batches(torch, sets, must)
-    log(f"per verify of S={N_SETS} x K={N_KEYS}: fused "
-        f"{fused_runs['valid']['seconds']:.3f} s, classic "
-        f"{classic_runs['valid']['seconds']:.3f} s")
+    # Each configuration's kernels: the fused verify kernels K2-K4, K8-K11;
+    # the hash kernels K12 (resident) or K13 and K14 (chained); K1 always.
+    k1_name = mont_mul.K1.name
+    hash_names = [th.K12.name, th.K13.name, th.K14.name]
+    verify_names = [k.name for k in _build.KERNELS
+                    if k.name != k1_name and k.name not in hash_names]
+    chained = [th.K13.name, th.K14.name]
+    paths = {
+        "fused": ({}, [k1_name, *verify_names, th.K12.name], chained),
+        "fused chained-hash": ({"htc_resident": False},
+                               [k1_name, *verify_names, *chained], [th.K12.name]),
+        "fused host-hash": ({"device_htc": False}, [k1_name, *verify_names],
+                            hash_names),
+        "classic host-hash": ({"fused": False, "device_htc": False}, [k1_name],
+                              verify_names + hash_names),
+    }
+    # the main path: the card's default, the fused verify with the device hash
+    fused_runs = verify_path(torch, sets, "fused", *paths["fused"])
+    # the same batch with the host hash, and the classic configuration
+    host_runs = verify_path(torch, sets, "fused host-hash", *paths["fused host-hash"],
+                            swap=False)
+    classic_runs = verify_path(torch, sets, "classic host-hash",
+                               *paths["classic host-hash"])
+    small = small_batches(torch, sets, paths)
+    log(f"per verify of S={N_SETS} x K={N_KEYS}: fused {fused_runs['valid']['seconds']:.3f} s "
+        f"(device hash), fused {host_runs['valid']['seconds']:.3f} s (host hash), "
+        f"classic {classic_runs['valid']['seconds']:.3f} s (host hash)")
 
-    launches = fused_runs["valid"]["launches"]
-    time_at_path_shape(torch, np, k1, fused_runs["valid"]["sizes"][k1["name"]], REPS)
-    entries = [k1] + [fused[n] for n in fused_names]
+    # launches from the run of the path each kernel belongs to: the main
+    # path's, and the chained hash's small batch for K13 and K14
+    launches = dict(fused_runs["valid"]["launches"])
+    for name in chained:
+        launches[name] = small["fused chained-hash"]["launches"][name]
+    time_at_path_shape(torch, np, k1, fused_runs["valid"]["sizes"][k1_name], REPS)
+    entries = [k1] + [fused[n] for n in verify_names + hash_names]
     for e in entries:
         e["launches"] = launches[e["name"]]
+        if e["name"] in chained:
+            e["launches_path"] = "fused chained-hash small S=2"
         bytes_ms = e.pop("bytes") / HBM_BYTES_PER_S * 1e3
         ops_ms = e.pop("fp_products") * MADS_PER_FP_PRODUCT / int_rate * 1e3
         e["bound_ms"] = max(bytes_ms, ops_ms)

@@ -3,8 +3,8 @@
 // namespace for the same reason).
 //
 // The formulas, their order of operations and the lane cases are those of
-// ops/points.py: pt_double (5S + 2M), pt_add_mixed (madd-2007-bl) with its
-// masked case analysis (P at infinity -> Q, Q at infinity -> P, P == Q ->
+// ops/points.py: pt_double (5S + 2M), pt_add (add-2007-bl, 5S + 11M) and
+// pt_add_mixed (madd-2007-bl) with their masked case analysis (P at infinity -> Q, Q at infinity -> P, P == Q ->
 // the doubling, P == -Q -> Z3 = 0), so a lane at infinity stays inert and
 // the limbs equal the plain versions'. Where the plain version computes
 // both legs and keeps one by a per-lane select, a kernel thread computes
@@ -66,6 +66,41 @@ __device__ __noinline__ Jac<F> pt_double(const Jac<F>& P) {
   const F X3 = sub(sqr(E), dbl(D));
   const F Y3 = sub(mul(E, sub(D, X3)), dbl(dbl(dbl(C))));
   return {X3, Y3, dbl(Zh)};
+}
+
+template <class F>
+__device__ __forceinline__ Jac<F> pt_neg(const Jac<F>& P) {
+  return {P.X, neg(P.Y), P.Z};
+}
+
+// ops/points.py pt_add: the complete Jacobian addition (add-2007-bl) with
+// its case order: P at infinity -> Q, Q at infinity -> P, P == Q -> the
+// doubling, P == -Q -> Z3 = 0 (H = 0 makes it so). The zero tests run on
+// lazy [0, 2p) values, where zero is 0 or p (fp_is_zero), as F.is_zero.
+template <class F>
+__device__ __noinline__ Jac<F> pt_add(const Jac<F>& P, const Jac<F>& Q) {
+  if (is_zero(P.Z)) return Q;
+  if (is_zero(Q.Z)) return P;
+  const F Z1Z1 = sqr(P.Z);
+  const F Z2Z2 = sqr(Q.Z);
+  const F U1 = mul(P.X, Z2Z2);
+  const F U2 = mul(Q.X, Z1Z1);
+  const F T1 = mul(Q.Z, Z2Z2);
+  const F T2 = mul(P.Z, Z1Z1);
+  const F S1 = mul(P.Y, T1);
+  const F S2 = mul(Q.Y, T2);
+  const F H = sub(U2, U1);
+  const F r = dbl(sub(S2, S1));
+  if (is_zero(H) && is_zero(r)) return pt_double(P);
+  const F I = sqr(dbl(H));
+  const F rr = sqr(r);
+  const F ZS = sqr(add(P.Z, Q.Z));
+  const F J = mul(H, I);
+  const F V = mul(U1, I);
+  const F Z3 = mul(sub(sub(ZS, Z1Z1), Z2Z2), H);
+  const F X3 = sub(sub(rr, J), dbl(V));
+  const F Y3 = sub(mul(r, sub(V, X3)), dbl(mul(S1, J)));
+  return {X3, Y3, Z3};
 }
 
 // ops/points.py pt_add_mixed: P (Jacobian) + (x2, y2) (affine, q_inf).

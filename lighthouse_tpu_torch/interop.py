@@ -21,6 +21,10 @@ N_WORDS = 12
 
 
 def _tensor(x, dtype, shape, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # already a tensor, possibly on device
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"expected shape {tuple(shape)}, got {tuple(x.shape)}")
+        return x.to(device=device, dtype=dtype)
     arr = np.ascontiguousarray(np.asarray(x))
     if arr.shape != tuple(shape):
         raise ValueError(f"expected shape {tuple(shape)}, got {arr.shape}")
@@ -33,7 +37,8 @@ def operands_from_numpy(px, py, pinf, sx, sy, sinf, mx, my, minf, r_bits,
 
     px, py: int32 [S, K, 48]; pinf: bool [S, K]; sx, sy, mx, my: int32
     [S, 2, 48]; sinf, minf: bool [S]; r_bits: int32 [S, 64] (MSB first).
-    Returns (pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits) on ``device``.
+    Any operand may already be a tensor (the device hash leaves mx, my,
+    minf on the card); it moves only if it lies elsewhere. Returns (pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits) on ``device``.
     """
     S, K = np.asarray(pinf).shape
     i32, b = torch.int32, torch.bool

@@ -1,8 +1,8 @@
 """PyTorch/CUDA BLS backend: ``verify_signature_sets`` on an H100.
 
 Port of the verify paths of ``lighthouse_tpu/jax_backend.py``
-(``JaxBackend._dispatch`` with ``LHTPU_MSM_VERIFY=0``,
-``LHTPU_DEVICE_HTC=0``): the whole batch check
+(``JaxBackend._dispatch`` with ``LHTPU_MSM_VERIFY=0``): the whole batch
+check
 
     prod_i e([r_i] agg_pk_i, H(m_i)) * e(-g1, sum_i [r_i] sig_i) == 1
 
@@ -22,7 +22,11 @@ configurations:
   lanes are points at infinity, the neutral element everywhere.
 * Structural rejects (empty list, a set with no keys, an infinity
   signature) are answered on the host before any field math.
-* Messages are hashed to G2 by the host oracle, once per distinct message.
+* Messages are hashed to G2 once per distinct message, on the device
+  (``ops/tkernel_htc.py``: kernel K12, or K13 and K14 chained; the default
+  on the card, as ``LHTPU_DEVICE_HTC`` is on the JAX package's accelerator)
+  or by the host oracle (the default on the CPU). The device hash's points
+  never leave the card before the verify core uses them.
 * The RLC blinding scalars come from the host CSPRNG (``secrets``), never
   from a seeded generator: predictable blinding scalars break soundness.
 
@@ -52,6 +56,7 @@ from .crypto.bls.hash_to_curve import hash_to_g2
 from .dedup import dedup_plan
 from .ops import field
 from .ops import tkernel_calls as tc
+from .ops import tkernel_htc as th
 from .ops.field import const
 from .ops.pairing import final_exponentiation, fp12_tree_prod, miller_loop
 from .ops.points import (
@@ -221,9 +226,15 @@ class TorchBackend:
 
     ``fused``: True runs the fused path, False the classic one; None (the
     default) picks fused on the card and classic on the CPU, as the JAX
-    package picks fused on its accelerator only."""
+    package picks fused on its accelerator only.
 
-    def __init__(self, device=None, fused=None):
+    ``device_htc``: True hashes the messages on ``device`` (kernel K12 or
+    the chained K13 -> add -> K14, by ``htc_resident``; their plain versions
+    on the CPU), False with the host oracle; None (the default) picks the
+    device hash on the card and the host oracle on the CPU."""
+
+    def __init__(self, device=None, fused=None, device_htc=None,
+                 htc_resident=True):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -234,8 +245,14 @@ class TorchBackend:
         self.device = torch.device(device)
         self.fused = self.device.type == "cuda" if fused is None else bool(fused)
         self._core = _verify_core_fused if self.fused else _verify_core
-        # Stage -> seconds of the most recent verify: pack / hash_to_curve /
-        # scalars / dispatch / device_sync (empty after a host reject).
+        self.device_htc = (self.device.type == "cuda" if device_htc is None
+                           else bool(device_htc))
+        self.htc_resident = bool(htc_resident)
+        # Stage -> seconds of the most recent verify: pack / hash_to_curve
+        # (with its sub-stages htc_dedup / htc_map / htc_cofactor) / scalars /
+        # dispatch / device_sync (empty after a host reject). Device work is
+        # asynchronous: a stage holds its host time, and device_sync the wait
+        # for the rest.
         self.last_stage_seconds: dict = {}
         # Device of the operand tensors of the most recent dispatch.
         self.last_operand_device: torch.device | None = None
@@ -263,7 +280,8 @@ class TorchBackend:
             sigs = [s.signature.point for s in sets] + [inf2] * (S - n)
             sx, sy, sinf = g2_to_dev(sigs)
         with _stage("hash_to_curve", stages):
-            mx, my, minf = _hash_messages([s.message for s in sets], S, inf2)
+            mx, my, minf = self._hash_messages([s.message for s in sets], S,
+                                               inf2, stages)
         with _stage("scalars", stages):
             _, r_bits = _rand_scalars(S)
         with _stage("dispatch", stages):
@@ -274,6 +292,40 @@ class TorchBackend:
             ok = self._core(*ops)
         with _stage("device_sync", stages):
             return bool(ok.item())
+
+    def _hash_messages(self, messages, S: int, inf2, stages: dict):
+        """(mx, my, minf) for the S padded rows (reference:
+        ``JaxBackend._hash_message_bytes``): each distinct message is
+        hashed once and the rows gather from the distinct batch.
+
+        On the device the distinct batch pads to a power of two with copies
+        of its first message, maps (K12, or K13 and the add), finishes (K14
+        unless K12 ran, then K2), and gathers by the plan's index on the
+        device; the padding rows are infinity. The host route hashes with
+        the oracle and packs limbs on the host."""
+        with _stage("htc_dedup", stages):
+            plan = dedup_plan(messages)
+        n = len(messages)
+        if not self.device_htc:
+            with _stage("htc_map", stages):
+                memo = [hash_to_g2(m) for m in plan.distinct]
+            with _stage("htc_cofactor", stages):
+                rows = [memo[j] for j in plan.index] + [inf2] * (S - n)
+                return g2_to_dev(rows)
+        D = next_pow2(len(plan.distinct))
+        padded = plan.distinct + [plan.distinct[0]] * (D - len(plan.distinct))
+        with _stage("htc_map", stages):
+            Q, cleared = th.hash_to_g2_map_dev(
+                padded, device=self.device, resident=self.htc_resident)
+        with _stage("htc_cofactor", stages):
+            hx, hy, hinf = th.hash_to_g2_finish_dev(Q, cleared)
+        idx = np.zeros(S, np.int64)
+        idx[:n] = plan.index
+        pad_inf = np.ones(S, bool)
+        pad_inf[:n] = False
+        idx = torch.from_numpy(idx).to(self.device)
+        pad_inf = torch.from_numpy(pad_inf).to(self.device)
+        return hx[idx], hy[idx], hinf[idx] | pad_inf
 
 
 def _pack_pubkey_grid(sets, S: int, K: int, n: int, inf1):
@@ -287,12 +339,3 @@ def _pack_pubkey_grid(sets, S: int, K: int, n: int, inf1):
     flat = [p for row in pk_rows for p in row]
     px, py, pinf = g1_to_dev(flat)
     return px.reshape(S, K, 48), py.reshape(S, K, 48), pinf.reshape(S, K)
-
-
-def _hash_messages(messages, S: int, inf2):
-    """(mx, my, minf) for the S padded rows: the host oracle hashes each
-    distinct message once; rows gather from the distinct batch."""
-    plan = dedup_plan(messages)
-    memo = [hash_to_g2(m) for m in plan.distinct]
-    rows = [memo[j] for j in plan.index] + [inf2] * (S - len(messages))
-    return g2_to_dev(rows)

@@ -91,7 +91,8 @@ def test_verdict_matches_oracle(name, want):
     assert be.verify_signature_sets(sets) is want
     assert be.last_operand_device == torch.device("cpu")
     assert set(be.last_stage_seconds) == {
-        "pack", "hash_to_curve", "scalars", "dispatch", "device_sync"
+        "pack", "hash_to_curve", "htc_dedup", "htc_map", "htc_cofactor",
+        "scalars", "dispatch", "device_sync"
     }
 
 

@@ -32,6 +32,7 @@ from lighthouse_tpu.ops import points as jpoints
 from lighthouse_tpu_torch.crypto.bls.constants import P, X
 from lighthouse_tpu_torch.ops import _build, field, pairing, points, tower
 from lighthouse_tpu_torch.ops import tkernel_calls as tc
+from lighthouse_tpu_torch.ops import tkernel_htc as th
 from lighthouse_tpu_torch.ops.points import FP2_OPS, FP_OPS
 from lighthouse_tpu_torch.torch_backend import TorchBackend, _verify_core_fused
 from tests.test_torch_backend import CASES, _case
@@ -190,6 +191,9 @@ WRAPPERS = {
     "easy_exp": lambda a: tc.easy_exp(a(2, *_FP12)),
     "pow_x": lambda a: tc.pow_x(a(2, *_FP12), True),
     "comb": lambda a: tc.comb(a(2, *_FP12), _i32(2, *_FP12), "c"),
+    "map_to_g2": lambda a: th.map_to_g2_resident(a(2, 2, *_FP2)),
+    "sswu_iso": lambda a: th.sswu_iso(a(2, *_FP2)),
+    "cofactor": lambda a: th.clear_cofactor((a(2, *_FP2), _i32(2, *_FP2), _i32(2, *_FP2))),
 }
 
 # A tensor on the meta device is not a CPU tensor, so it takes the kernel's

@@ -34,6 +34,8 @@ def test_scan_covers_the_port():
     assert "chip_smoke.py" in names
     assert os.path.join("lighthouse_tpu_torch", "torch_backend.py") in names
     assert os.path.join("lighthouse_tpu_torch", "ops", "mont_mul.py") in names
+    assert os.path.join("lighthouse_tpu_torch", "ops", "htc.py") in names
+    assert os.path.join("lighthouse_tpu_torch", "ops", "tkernel_htc.py") in names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

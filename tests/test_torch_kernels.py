@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 and the fused kernels) against their plain
-PyTorch versions.
+"""The port's CUDA kernels (K1, the fused verify kernels and the hash
+kernels) against their plain PyTorch versions.
 
 Imports only torch, numpy and the port, so it also runs on a GPU machine
 without JAX:
@@ -17,9 +17,10 @@ import torch
 from lighthouse_tpu_torch.crypto.bls.constants import P
 from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator
 from lighthouse_tpu_torch.crypto.bls.fields import Fq2
-from lighthouse_tpu_torch.crypto.bls.hash_to_curve import map_to_curve_g2
-from lighthouse_tpu_torch.ops import field, mont_mul, pairing, points
+from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2, map_to_curve_g2
+from lighthouse_tpu_torch.ops import field, htc, mont_mul, pairing, points
 from lighthouse_tpu_torch.ops import tkernel_calls as tc
+from lighthouse_tpu_torch.ops import tkernel_htc as th
 
 R = 1 << 384
 EDGES = [0, 1, P - 1, P, 2 * P - 1, R % P]
@@ -188,4 +189,51 @@ def test_fused_kernels_launch_nothing_on_zero_lanes():
     assert tc.subgroup_check_g2_fast(e2, e2, m).shape == (0,)
     assert tc.miller_loop((e1, e1), m, (e2, e2), m).shape == (0, 2, 3, 2, 48)
     assert tc.comb(f, f, "b").shape == (0, 2, 3, 2, 48)
+    us = torch.empty(0, 2, 2, 48, dtype=torch.int32, device="cuda")
+    assert th.map_to_g2_resident(us)[0].shape == (0, 2, 48)
+    assert th.sswu_iso(e2)[2].shape == (0, 2, 48)
+    assert th.clear_cofactor((e2, e2, e2))[1].shape == (0, 2, 48)
     assert {k.name: k.launches for k in tc._build.KERNELS} == before
+
+
+# ------------------------------------------------------- the hash kernels
+# K12 (resident map), K13 (SSWU + isogeny) and K14 (cofactor) against their
+# plain versions on the same CUDA tensors, with the edge lanes: u = 0 on
+# both halves, u0 == u1 (Q0 + Q1 takes the doubling), a lane at infinity.
+
+
+def _hash_inputs():
+    u = torch.from_numpy(htc.hash_to_field_dev([b"", b"abc", b"lighthouse"]))
+    zero = torch.zeros(1, 2, 2, 48, dtype=torch.int32)
+    twin = u[1:2, :1].expand(1, 2, 2, 48)
+    return torch.cat([u, zero, twin]).cuda()
+
+
+@pytest.mark.cuda
+def test_hash_kernels_match_plain():
+    _card()
+    us = _hash_inputs()
+    n = us.shape[0]
+    before = {k.name: k.launches for k in (th.K12, th.K13, th.K14)}
+    assert _same(th.map_to_g2_resident(us), th.map_to_g2_resident_plain(us))
+    flat = torch.cat([us[:, 0], us[:, 1]])
+    J = th.sswu_iso(flat)
+    assert _same(J, th.sswu_iso_plain(flat))
+    Q = points.pt_add(points.FP2_OPS, tuple(c[:n] for c in J), tuple(c[n:] for c in J))
+    Q = tuple(c.clone() for c in Q)
+    Q[2][0] = 0  # a lane at infinity
+    assert _same(th.clear_cofactor(Q), th.cofactor_plain(Q))
+    assert {k.name: k.launches for k in (th.K12, th.K13, th.K14)} == {
+        k: v + 1 for k, v in before.items()}
+
+
+@pytest.mark.cuda
+def test_device_hash_matches_oracle_resident_and_chained():
+    _card()
+    msgs = [b"", b"abc", b"lighthouse", b"abc"]
+    want = points.g2_to_dev([hash_to_g2(m) for m in msgs])
+    for resident in (True, False):
+        got = th.hash_to_g2_fused_dev(msgs, resident=resident)
+        assert got[0].device.type == "cuda"
+        for g, w in zip(got, want):
+            assert np.array_equal(g.cpu().numpy(), w)
