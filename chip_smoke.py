@@ -12,36 +12,47 @@ In order, and failing (nonzero exit, no result line) at the first fault:
 3. K1 against its plain PyTorch version: bit equality on 2^20 random values
    in [0, 2p) plus the edge rows, big-int agreement on a sample, timings
    (CUDA events, median of repetitions);
-4. each fused verify kernel (K2-K4, K8-K11) against its plain version on the
-   card, at the shapes the fused path gives it and with its edge lanes
-   (infinity, Z = 1, scalars 0, 1 and 2^64-1, points outside G2): equality
-   after ``canonical`` (and whether the raw limbs match), K4 also against
-   the full-order subgroup check, the final-exponentiation chain also
-   against the classic ``pairing.final_exponentiation``; kernel and plain
-   times;
-5. the hash kernels (K12 resident map, K13 SSWU + isogeny, K14 cofactor)
+4. each fused verify kernel (K2-K4, K8-K11) and the full-order subgroup
+   check K15 against its plain version on the card, at the shapes the fused
+   path gives it and with its edge lanes (infinity, Z = 1, scalars 0, 1 and
+   2^64-1, points outside G2): equality after ``canonical`` (and whether
+   the raw limbs match), K4 also against K15, the final-exponentiation
+   chain also against the classic ``pairing.final_exponentiation``; kernel
+   and plain times;
+5. the MSM kernels (K5 accumulate, K6 tree, K7 Horner) against their plain
+   versions at the main path's shapes (the batch's 128 signatures, a
+   schedule from seeded scalars, L = 48), on all 256 lanes (K7 on lane 0),
+   then on the edge batch (a duplicate signature whose mixed addition
+   doubles, S and -S cancelling in a bucket before a further addition, an
+   empty bucket) and with every set skipped; the MSM point against the scan
+   (K3 G2 and the S-leaf tree) and the oracle's sum r_i S_i at canonical
+   affine; kernel-only times of the MSM against the scan at S=2048;
+6. the hash kernels (K12 resident map, K13 SSWU + isogeny, K14 cofactor)
    against their plain versions at the shapes the batch's 128 distinct
    messages give them and on edge lanes (u = 0 on both halves, u0 == u1,
    a lane at infinity, the RFC 9380 J.10.1 messages), both SSWU branches
    among the lanes; K12 + K2 against the RFC vectors; the device hash,
    resident and chained, against the oracle's points of all 128 messages;
-6. the main path, the card's default, through the user entry point
+7. the main path, the card's default, through the user entry point
    ``TorchBackend().verify_signature_sets`` at a mainnet block's size:
    S=128 aggregate attestations of K=512 keys, fused verify with the device
-   hash (K12). The valid batch must verify True, the batch with two
-   signatures swapped False;
-7. the same valid batch with the host oracle's hash (``device_htc=False``),
-   for the before and after on one card, and the classic configuration
-   (``fused=False, device_htc=False``) on the valid and swapped batches;
-8. two small batches through every configuration, the chained hash
+   hash (K12) and the MSM (K5-K7). The valid batch must verify True, the
+   batch with two signatures swapped False;
+8. the same two batches with the scan in place of the MSM (``msm=False``),
+   the valid batch with the host oracle's hash (``device_htc=False``), and
+   the classic configuration (``fused=False, device_htc=False``) on the
+   valid and swapped batches;
+9. two small batches through every configuration, the chained hash
    (``htc_resident=False``) among them, against the pure-Python oracle;
-9. the ``kernels`` JSON line, the nvidia-smi line, and the result line.
+10. the ``kernels`` JSON line, the nvidia-smi line, and the result line.
 
 Kernel launch counts are zeroed just before each verify and read just after
-it. Each configuration has its list: the fused path with the device hash
-must launch K1-K4, K8-K12 and not K13 or K14; with the chained hash K13 and
-K14 and not K12; with the host hash none of K12-K14; the classic path K1
-and none of the others.
+it. Each configuration has its list: the default fused path must launch K1,
+K2, K3 G1, K4, K5-K7 (once each), K8-K12 and not K3 G2, K13, K14 or K15;
+with ``msm=False`` K3 G2 and not K5-K7; with the chained hash K13 and K14
+and not K12; with the host hash none of K12-K14; the classic path K1 and
+none of the others. No verify launches K15: its launches are those of the
+K4-against-K15 check.
 
 Imports nothing of JAX or of the JAX package. Data comes from a seeded
 numpy generator (secret keys sk_i = base + i, so pk_{i+1} = pk_i + G1).
@@ -363,6 +374,35 @@ def fp_product_counts(P: int) -> dict:
     return c
 
 
+def subgroup_full_products(c: dict, P: int) -> int:
+    """K15's Fp products for one finite lane: a doubling per bit of the
+    curve order below its top, a complete addition on each one bit."""
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+
+    return (R.bit_length() - 1) * c["dbl_g2"] + (bin(R).count("1") - 1) * c["add_g2"]
+
+
+def msm_products(np, c: dict, valid) -> dict:
+    """Fp products of K5, K6 and K7 for this schedule: K5 a mixed addition
+    for each point after a bucket's first (the first lands on infinity and
+    costs none); K6 a complete addition wherever both lanes of a shift-add
+    step are finite (the infinity pattern follows the buckets' counts); K7
+    60 doublings and an addition per window whose sum is finite. Counted
+    for points in general position, as random signatures and scalars give."""
+    counts = np.zeros(256, np.int64)
+    counts[:240] = valid.sum(axis=0)
+    k5 = int(np.maximum(counts - 1, 0).sum()) * c["madd_g2"]
+    inf = counts == 0
+    k6 = 0
+    for _ in range(2):
+        for sh in (16, 32, 64, 128):
+            q_inf = np.concatenate([inf[sh:], np.ones(sh, bool)])
+            k6 += int((~inf & ~q_inf).sum()) * c["add_g2"]
+            inf = inf & q_inf
+    k7 = 60 * c["dbl_g2"] + int((~inf[:15]).sum()) * c["add_g2"]
+    return {"msm_accum": k5, "msm_tree": k6, "msm_horner": k7}
+
+
 def sswu_lane_work(u, consts) -> tuple[bool, int]:
     """(gx1 is a square, candidate checks made) for one u, by the kernels'
     own sqrt_ratio in the oracle's Fq2 arithmetic: the hits depend on the
@@ -519,14 +559,24 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
         int((~sinf).sum()) * (63 * c["dbl_g2"] + 5 * c["madd_g2"]
                               + 4 * c["fp2_mul"] + c["fp2_sqr"] + 2 * c["fp2_mul"]),
         n * (2 * 384 + 2))
+    # K15, the full-order check [r]Q == inf, on the same lanes: 254
+    # doublings and an addition on each of r's 133 one bits below its top
+    out[tc.K15.name] = check_kernel(
+        torch, tc.K15, f"K15 subgroup_full {n} lanes",
+        lambda: tc.subgroup_check_g2(sx, sy, sinf_t),
+        lambda: points.pt_subgroup_check(
+            FP2_OPS, points.pt_from_affine(FP2_OPS, sx, sy, sinf_t)),
+        int((~sinf).sum()) * subgroup_full_products(c, P), n * (2 * 384 + 2))
     fast = tc.subgroup_check_g2_fast(sx, sy, sinf_t)
-    full = points.pt_subgroup_check(FP2_OPS, points.pt_from_affine(FP2_OPS, sx, sy, sinf_t))
+    before = tc.K15.launches
+    full = tc.subgroup_check_g2(sx, sy, sinf_t)
+    out[tc.K15.name]["check_launches"] = tc.K15.launches - before
     want = [True] * 96 + [False] * 28 + [True] * 4
     if not torch.equal(fast, full) or fast.tolist() != want:
-        raise AssertionError("K4 disagrees with the full-order check or the "
-                             "expected membership pattern")
-    log("K4 agrees with the full-order check [r]Q == inf on 96 points in G2, "
-        "28 outside G2 and 4 at infinity")
+        raise AssertionError("K4 disagrees with K15 (the full-order check) or "
+                             "the expected membership pattern")
+    log("K4 agrees with K15, the full-order check [r]Q == inf, on the card on "
+        "96 points in G2, 28 outside G2 and 4 at infinity")
 
     # K8: S + 1 = 129 pairs, P at infinity on lane 3, Q on lane 125
     g1 = g1_generator().neg()
@@ -594,7 +644,183 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     return out
 
 
-# ------------------------------------------------- phase 5: hash kernels
+# -------------------------------------------------- phase 5: MSM kernels
+
+
+def seeded_scalars(np, seed: int, n: int):
+    """n nonzero uniform 64-bit scalars from a seeded generator: the
+    distribution of the backend's CSPRNG scalars, made reproducible."""
+    r = np.frombuffer(np.random.default_rng(seed).bytes(8 * n), np.uint64).copy()
+    r[r == 0] = 1
+    return r
+
+
+def msm_edge_batch(np, sets):
+    """The batch's signatures and seeded scalars with the MSM's edge cases:
+    set 1 carries set 0's signature and shares its window-0 digit (the mixed
+    addition doubles), set 3 carries -sig_2 and shares window 1's digit with
+    sets 2 and 4 (the bucket cancels to infinity, then takes a further
+    addition), and no scalar has the digit 15 in window 15 (lane 239 stays
+    empty). Returns (signature points, scalars uint64)."""
+    rng = np.random.default_rng(4)
+    pts = [s.signature.point for s in sets]
+    pts[1] = pts[0]
+    pts[3] = pts[2].neg()
+    r = rng.integers(1, 1 << 60, len(pts), dtype=np.int64).astype(np.uint64)
+    top = rng.integers(0, 15, len(pts), dtype=np.int64).astype(np.uint64)
+    r |= top << np.uint64(60)             # window 15's digit below 15
+    low = np.uint64(0xFF)
+    r[0] = (r[0] & ~low) | np.uint64(0x35)
+    r[1] = (r[1] & ~low) | np.uint64(0x45)  # window 0: digit 5, as set 0
+    for i in (2, 3, 4):
+        r[i] = (r[i] & ~low) | np.uint64(0x70 + i)  # window 1: digit 7
+    return pts, r
+
+
+def oracle_msm(pts, r, skip):
+    """sum r_i P_i over the sets not skipped, in the oracle's arithmetic."""
+    from lighthouse_tpu_torch.crypto.bls.curve import g2_infinity
+
+    acc = g2_infinity()
+    for p, k, sk in zip(pts, r, skip):
+        if not sk:
+            acc = acc.add(p.mul(int(k)))
+    return acc
+
+
+def check_msm_kernels(torch, np, sets) -> dict:
+    """K5, K6 and K7 against their plain versions on the card at the main
+    path's shapes (the batch's 128 signatures, seeded scalars, L = 48), on
+    every lane after canonical (K7 on its one lane); then on the edge batch
+    and with every set skipped; the MSM point against the scan (K3 G2, the
+    S-leaf tree) at canonical affine after K2, and against the oracle's
+    sum_i r_i S_i on a subset of 8 sets. Returns {kernel name: entry}."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.ops import msm, points
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+
+    c = fp_product_counts(P)
+    n = len(sets)
+    dev = torch.device("cuda")
+    L = msm.max_rounds(n)
+
+    def cuda(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+
+    sx, sy, _ = points.g2_to_dev([s.signature.point for s in sets])
+    r = seeded_scalars(np, 2027, n)
+    idx, valid = msm.build_schedule(r, L)
+    sx, sy, ti, tv = cuda(sx, sy, idx, valid)
+    work = msm_products(np, c, valid)
+    out = {}
+    out[msm.K5.name] = check_kernel(
+        torch, msm.K5, f"K5 msm_accum {n} sets, L={L}, 256 lanes",
+        lambda: msm.accumulate(sx, sy, ti, tv),
+        lambda: msm.accum_plain(sx, sy, ti, tv),
+        work["msm_accum"], n * 2 * 384 + L * 240 * 5 + 3 * 256 * 384)
+    B = msm.accum_plain(sx, sy, ti, tv)
+    out[msm.K6.name] = check_kernel(
+        torch, msm.K6, "K6 msm_tree 256 lanes",
+        lambda: msm.tree(B), lambda: msm.tree_plain(B),
+        work["msm_tree"], 2 * 3 * 256 * 384)
+    T = msm.tree_plain(B)
+    out[msm.K7.name] = check_kernel(
+        torch, msm.K7, "K7 msm_horner lane 0",
+        lambda: msm.horner(T), lambda: msm.horner_plain(T),
+        work["msm_horner"], 16 * 3 * 384 + 3 * 384)
+    log(f"K5 schedule at S={n}: L={L}, points per bucket max "
+        f"{int(valid.sum(0).max())}, mean {valid.sum(0).mean():.2f}")
+
+    # the MSM point against the scan at canonical affine (K2 G2 after both)
+    bits = torch.from_numpy(points.scalars_to_bits([int(k) for k in r], 64)).to(dev)
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    got = tc.to_affine_g2(tuple(t[None] for t in msm.msm_g2(sx, sy, ti, tv)))
+    scan = points.pt_tree_sum(points.FP2_OPS, tc.scalar_mul_g2(sx, sy, none, bits), n)
+    want = tc.to_affine_g2(tuple(t[None] for t in scan))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("MSM (K5-K7) != scan (K3 G2 + tree) at canonical affine")
+    log(f"MSM (K5-K7) equals the scan (K3 G2, {n}-leaf tree) at canonical affine")
+
+    # edge cases, every kernel against its plain version, then the oracle
+    pts, re = msm_edge_batch(np, sets)
+    ex, ey, _ = points.g2_to_dev(pts)
+    ex, ey = cuda(ex, ey)
+    sub = np.arange(n) >= 8
+    for label, skip in (("edge batch", None), ("edge batch, 8 sets", sub),
+                        ("every set skipped", np.ones(n, bool))):
+        sched = msm.build_schedule(re, L, skip)
+        ei, ev = cuda(*sched)
+        check_kernel(torch, msm.K5, f"K5 {label}", lambda: msm.accumulate(ex, ey, ei, ev),
+                     lambda: msm.accum_plain(ex, ey, ei, ev), 0, 0, time_it=False)
+        EB = msm.accum_plain(ex, ey, ei, ev)
+        check_kernel(torch, msm.K6, f"K6 {label}", lambda: msm.tree(EB),
+                     lambda: msm.tree_plain(EB), 0, 0, time_it=False)
+        ET = msm.tree_plain(EB)
+        check_kernel(torch, msm.K7, f"K7 {label}", lambda: msm.horner(ET),
+                     lambda: msm.horner_plain(ET), 0, 0, time_it=False)
+        ax, ay, ainf = tc.to_affine_g2(tuple(t[None] for t in msm.msm_g2(ex, ey, ei, ev)))
+        if skip is not None:
+            (pt,) = points.g2_from_dev(ax, ay, ainf)
+            if pt != oracle_msm(pts, re, skip):
+                raise AssertionError(f"MSM ({label}) != the oracle's sum r_i S_i")
+            log(f"MSM ({label}) equals the oracle's sum r_i S_i")
+    if not bool(ainf[0]):
+        raise AssertionError("MSM with every set skipped is not infinity")
+    return out
+
+
+def msm_against_scan(torch, np, sets, n: int) -> dict:
+    """Kernel-only times at S = n sets: the MSM (K5 at L = max_rounds(n),
+    K6, K7) against the scan (K3 G2 at n lanes, then the n-leaf plain tree),
+    by CUDA events; the two points agree at canonical affine. The n points
+    are [k_i] sig_(i mod 128) made on the card (K3 G2, K2 G2)."""
+    from lighthouse_tpu_torch.ops import msm, points
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n)
+    base_x, base_y, _ = points.g2_to_dev([s.signature.point for s in sets])
+    rows = np.arange(n) % len(sets)
+    ks = [int(k) for k in rng.integers(1, 1 << 62, n, dtype=np.int64)]
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    bx = torch.from_numpy(base_x[rows]).to(dev)
+    by = torch.from_numpy(base_y[rows]).to(dev)
+    kb = torch.from_numpy(points.scalars_to_bits(ks, 64)).to(dev)
+    sx, sy, _ = tc.to_affine_g2(tc.scalar_mul_g2(bx, by, none, kb))
+    r = seeded_scalars(np, n + 1, n)
+    L = msm.max_rounds(n)
+    idx, valid = msm.build_schedule(r, L)
+    ti = torch.from_numpy(idx).to(dev)
+    tv = torch.from_numpy(valid).to(dev)
+    bits = torch.from_numpy(points.scalars_to_bits([int(k) for k in r], 64)).to(dev)
+
+    def run_msm():
+        return msm.msm_g2(sx, sy, ti, tv)
+
+    def run_scan():
+        return points.pt_tree_sum(points.FP2_OPS, tc.scalar_mul_g2(sx, sy, none, bits), n)
+
+    a = tc.to_affine_g2(tuple(t[None] for t in run_msm()))
+    b = tc.to_affine_g2(tuple(t[None] for t in run_scan()))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"MSM != scan at S={n}")
+    B = msm.accumulate(sx, sy, ti, tv)
+    res = {
+        "S": n, "L": L, "bucket_max": int(valid.sum(0).max()),
+        "msm_ms": median_ms(torch, run_msm, KERNEL_REPS, warmup=1),
+        "k5_ms": median_ms(torch, lambda: msm.accumulate(sx, sy, ti, tv), KERNEL_REPS, warmup=1),
+        "k6_ms": median_ms(torch, lambda: msm.tree(B), KERNEL_REPS, warmup=1),
+        "k7_ms": median_ms(torch, lambda: msm.horner(B), KERNEL_REPS, warmup=1),
+        "scan_ms": median_ms(torch, run_scan, KERNEL_REPS, warmup=1),
+        "k3_g2_ms": median_ms(torch, lambda: tc.scalar_mul_g2(sx, sy, none, bits),
+                              KERNEL_REPS, warmup=1),
+    }
+    log(f"MSM vs scan at S={n} (kernel-only, CUDA events, median of "
+        f"{KERNEL_REPS}), equal at canonical affine: {json.dumps(res)}")
+    return res
+
+
+# ------------------------------------------------- phase 6: hash kernels
 
 
 def hash_edge_inputs(torch, np, msgs):
@@ -801,8 +1027,9 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, repo)
-    # importing the wrappers registers K1, the fused and the hash kernels
-    from lighthouse_tpu_torch.ops import _build, mont_mul, tkernel_calls  # noqa: F401
+    # importing the wrappers registers K1, the fused, MSM and hash kernels
+    from lighthouse_tpu_torch.ops import _build, mont_mul, msm
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
     from lighthouse_tpu_torch.ops import tkernel_htc as th
 
     t_start = time.perf_counter()
@@ -821,6 +1048,8 @@ def main() -> int:
 
     with GpuSampler() as gpu:
         fused = check_fused_kernels(torch, np, sets, hashes)
+        fused.update(check_msm_kernels(torch, np, sets))
+        wide = msm_against_scan(torch, np, sets, 2048)
         fused.update(check_hash_kernels(torch, np, sets, hashes))
     clock_mhz = gpu.summary["sm_clock_mhz_max"]
     int_rate = INT_MADS_PER_CLOCK * clock_mhz * 1e6
@@ -828,49 +1057,78 @@ def main() -> int:
         f"{gpu.summary['sm_clock_mhz']}); 32-bit integer multiply-add rate "
         f"132 SMs x 64 x clock = {int_rate:.4g}/s")
 
-    # Each configuration's kernels: the fused verify kernels K2-K4, K8-K11;
-    # the hash kernels K12 (resident) or K13 and K14 (chained); K1 always.
+    # Each configuration's kernels: the fused verify kernels K2, K3 G1, K4,
+    # K8-K11; the signature accumulator K5-K7 (MSM) or K3 G2 (scan); the
+    # hash kernels K12 (resident) or K13 and K14 (chained); K1 always. No
+    # verify launches K15.
     k1_name = mont_mul.K1.name
     hash_names = [th.K12.name, th.K13.name, th.K14.name]
+    msm_names = [msm.K5.name, msm.K6.name, msm.K7.name]
+    scan_name, k15_name = tc.K3_G2.name, tc.K15.name
     verify_names = [k.name for k in _build.KERNELS
-                    if k.name != k1_name and k.name not in hash_names]
+                    if k.name not in [k1_name, scan_name, k15_name,
+                                      *msm_names, *hash_names]]
     chained = [th.K13.name, th.K14.name]
+    never = [k15_name]
     paths = {
-        "fused": ({}, [k1_name, *verify_names, th.K12.name], chained),
+        "fused": ({}, [k1_name, *verify_names, *msm_names, th.K12.name],
+                  [*chained, scan_name, *never]),
+        "fused scan": ({"msm": False}, [k1_name, *verify_names, scan_name, th.K12.name],
+                       [*chained, *msm_names, *never]),
         "fused chained-hash": ({"htc_resident": False},
-                               [k1_name, *verify_names, *chained], [th.K12.name]),
-        "fused host-hash": ({"device_htc": False}, [k1_name, *verify_names],
-                            hash_names),
+                               [k1_name, *verify_names, *msm_names, *chained],
+                               [th.K12.name, scan_name, *never]),
+        "fused host-hash": ({"device_htc": False}, [k1_name, *verify_names, *msm_names],
+                            [*hash_names, scan_name, *never]),
         "classic host-hash": ({"fused": False, "device_htc": False}, [k1_name],
-                              verify_names + hash_names),
+                              verify_names + msm_names + hash_names + [scan_name, *never]),
     }
-    # the main path: the card's default, the fused verify with the device hash
+    # the main path: the card's default, the fused verify with the device
+    # hash and the MSM, which launches each MSM kernel once
     fused_runs = verify_path(torch, sets, "fused", *paths["fused"])
-    # the same batch with the host hash, and the classic configuration
+    for run in fused_runs.values():
+        if any(run["launches"][name] != 1 for name in msm_names):
+            raise AssertionError(f"the MSM kernels did not run once each: "
+                                 f"{[run['launches'][m] for m in msm_names]}")
+    # the same batches with the scan, then the host hash and the classic path
+    scan_runs = verify_path(torch, sets, "fused scan", *paths["fused scan"])
     host_runs = verify_path(torch, sets, "fused host-hash", *paths["fused host-hash"],
                             swap=False)
     classic_runs = verify_path(torch, sets, "classic host-hash",
                                *paths["classic host-hash"])
     small = small_batches(torch, sets, paths)
     log(f"per verify of S={N_SETS} x K={N_KEYS}: fused {fused_runs['valid']['seconds']:.3f} s "
-        f"(device hash), fused {host_runs['valid']['seconds']:.3f} s (host hash), "
+        f"(device hash, MSM; swapped {fused_runs['poisoned']['seconds']:.3f} s), "
+        f"fused {scan_runs['valid']['seconds']:.3f} s (device hash, scan; swapped "
+        f"{scan_runs['poisoned']['seconds']:.3f} s), "
+        f"fused {host_runs['valid']['seconds']:.3f} s (host hash, MSM), "
         f"classic {classic_runs['valid']['seconds']:.3f} s (host hash)")
 
     # launches from the run of the path each kernel belongs to: the main
-    # path's, and the chained hash's small batch for K13 and K14
+    # path's; the scan's for K3 G2; the chained hash's small batch for K13
+    # and K14; the K4-against-K15 check for K15
     launches = dict(fused_runs["valid"]["launches"])
+    launches[scan_name] = scan_runs["valid"]["launches"][scan_name]
     for name in chained:
         launches[name] = small["fused chained-hash"]["launches"][name]
+    launches[k15_name] = fused[k15_name].pop("check_launches")
+    launches_path = {scan_name: f"fused scan (msm=False) valid S={N_SETS}",
+                     k15_name: "chip_smoke K4-against-K15 check (no verify launches it)",
+                     **{name: "fused chained-hash small S=2" for name in chained}}
     time_at_path_shape(torch, np, k1, fused_runs["valid"]["sizes"][k1_name], REPS)
-    entries = [k1] + [fused[n] for n in verify_names + hash_names]
+    entries = [k1] + [fused[n] for n in verify_names + [scan_name, k15_name]
+                      + msm_names + hash_names]
     for e in entries:
         e["launches"] = launches[e["name"]]
-        if e["name"] in chained:
-            e["launches_path"] = "fused chained-hash small S=2"
+        if e["name"] in launches_path:
+            e["launches_path"] = launches_path[e["name"]]
         bytes_ms = e.pop("bytes") / HBM_BYTES_PER_S * 1e3
         ops_ms = e.pop("fp_products") * MADS_PER_FP_PRODUCT / int_rate * 1e3
         e["bound_ms"] = max(bytes_ms, ops_ms)
         e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"MSM against the scan at S={wide['S']}: MSM {wide['msm_ms']:.4f} ms "
+        f"(K5 {wide['k5_ms']:.4f}, K6 {wide['k6_ms']:.4f}, K7 {wide['k7_ms']:.4f}), "
+        f"scan {wide['scan_ms']:.4f} ms (K3 G2 {wide['k3_g2_ms']:.4f})")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,5 +1,5 @@
-"""The fused kernels of the verify path (K2-K4, K8-K11) and their plain
-versions.
+"""The fused kernels of the verify path (K2-K4, K8-K11), the full-order
+subgroup check K15, and their plain versions.
 
 Counterpart of ``lighthouse_tpu/ops/tkernel_calls.py``, whose Pallas kernels
 each run one long sequential chain of the verify (affine normalisation,
@@ -41,8 +41,8 @@ _FP12 = (2, 3, 2, 48)
 
 _LIBS = {
     stem: _build.CudaLibrary(f"{stem}.cu")
-    for stem in ("to_affine", "scalar_mul", "subgroup_fast", "miller",
-                 "final_exp")
+    for stem in ("to_affine", "scalar_mul", "subgroup_fast", "subgroup",
+                 "miller", "final_exp")
 }
 _SITE = "lighthouse_tpu/ops/tkernel_calls.py"
 
@@ -62,6 +62,7 @@ K2_G2 = _kernel("to_affine_g2", "to_affine", "267 _to_affine_kernel(g2=True)")
 K3_G1 = _kernel("scalar_mul_g1", "scalar_mul", "77 _scalar_mul_kernel(g2=False)")
 K3_G2 = _kernel("scalar_mul_g2", "scalar_mul", "77 _scalar_mul_kernel(g2=True)")
 K4 = _kernel("subgroup_fast", "subgroup_fast", "191 _subgroup_fast_kernel")
+K15 = _kernel("subgroup_full", "subgroup", "141 _subgroup_kernel")
 K8 = _kernel("miller", "miller", "326 _miller_kernel")
 K9 = _kernel("easy_exp", "final_exp", "390 _easy_exp_kernel")
 K10 = _kernel("pow_x", "final_exp", "398 _pow_kernel")
@@ -191,6 +192,25 @@ def subgroup_check_g2_fast(x, y, inf):
     ])
     out = torch.empty(n, dtype=torch.bool, device=x.device)
     _launch(K4, (x, y, inf, out), (), n)
+    return out
+
+
+# --------------------------------------------------------------- K15
+
+
+def subgroup_check_g2(x, y, inf):
+    """Kernel K15: [r]Q == infinity per lane, r the curve order -> bool [n];
+    infinity passes (plain: ``points.pt_subgroup_check`` on
+    ``pt_from_affine``). The verify path runs K4; this is its full-order
+    counterpart."""
+    if _on_cpu(x, y, inf):
+        P = points.pt_from_affine(FP2_OPS, x, y, inf)
+        return points.pt_subgroup_check(FP2_OPS, P)
+    (x, y, inf), n = _checked(K15, [
+        (x, torch.int32, _FP2), (y, torch.int32, _FP2), (inf, torch.bool, ()),
+    ])
+    out = torch.empty(n, dtype=torch.bool, device=x.device)
+    _launch(K15, (x, y, inf, out), (), n)
     return out
 
 

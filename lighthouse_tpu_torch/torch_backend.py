@@ -1,8 +1,7 @@
 """PyTorch/CUDA BLS backend: ``verify_signature_sets`` on an H100.
 
 Port of the verify paths of ``lighthouse_tpu/jax_backend.py``
-(``JaxBackend._dispatch`` with ``LHTPU_MSM_VERIFY=0``): the whole batch
-check
+(``JaxBackend._dispatch``, single device): the whole batch check
 
     prod_i e([r_i] agg_pk_i, H(m_i)) * e(-g1, sum_i [r_i] sig_i) == 1
 
@@ -12,8 +11,10 @@ configurations:
 * **fused** (``LHTPU_FUSED_VERIFY=1``, the default on the card): each long
   chain (to-affine, scalar multiplication, psi-criterion subgroup check,
   Miller loop, final exponentiation) is one launch of a CUDA kernel
-  (``ops/tkernel_calls.py``); the log-depth trees between them stay tensor
-  code on kernel K1;
+  (``ops/tkernel_calls.py``), and the signature accumulator sum_i r_i sig_i
+  is the bucketed MSM (``ops/msm.py``: kernels K5-K7 on a host schedule,
+  ``LHTPU_MSM_VERIFY=1``, the reference's default); the log-depth trees
+  between them stay tensor code on kernel K1;
 * **classic** (``LHTPU_FUSED_VERIFY=0``, the default on the CPU): all of it
   is tensor code, every Fp multiply going through kernel K1
   (``ops/mont_mul.py``) on the card.
@@ -29,6 +30,9 @@ configurations:
   never leave the card before the verify core uses them.
 * The RLC blinding scalars come from the host CSPRNG (``secrets``), never
   from a seeded generator: predictable blinding scalars break soundness.
+  The MSM's bucket schedule is built from them on the host; in the rare
+  batch whose bucket overflows the static depth, the fused core takes the
+  per-set scalar multiplication and tree instead, with the same verdict.
 
 Sets are read by duck typing (``.signature.point``,
 ``.signature.is_infinity()``, ``.signing_keys[i].point``, ``.message``), so
@@ -54,7 +58,7 @@ from .crypto.bls.constants import RAND_BITS
 from .crypto.bls.curve import g1_infinity, g2_infinity
 from .crypto.bls.hash_to_curve import hash_to_g2
 from .dedup import dedup_plan
-from .ops import field
+from .ops import field, msm
 from .ops import tkernel_calls as tc
 from .ops import tkernel_htc as th
 from .ops.field import const
@@ -187,24 +191,31 @@ def _verify_core(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits):
 
 
 @torch.inference_mode()
-def _verify_core_fused(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits):
+def _verify_core_fused(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits,
+                       msm_idx=None, msm_valid=None):
     """The device program of the fused path (reference:
-    ``jax_backend._verify_core_fused`` with ``msm_idx=None``, ``axis=None``):
-    the contract of :func:`_verify_core`, the same verdict.
+    ``jax_backend._verify_core_fused`` with ``axis=None``): the contract of
+    :func:`_verify_core`, the same verdict.
 
     Each chain is one kernel (``ops/tkernel_calls.py``; on CPU tensors, its
     plain version); the aggregation and product trees between them stay
-    tensor code. The Miller kernel takes exactly S + 1 lanes; the padding to
-    a power of two for the product tree is Fp12 ones, after it."""
+    tensor code. With the host's bucket schedule (msm_idx int32 / msm_valid
+    bool [L, 240], padding sets left out) sum_i r_i sig_i is the MSM
+    (kernels K5-K7); without it, the per-set scalar multiplication (K3 G2)
+    and an S-leaf tree. The Miller kernel takes exactly S + 1 lanes; the
+    padding to a power of two for the product tree is Fp12 ones, after it."""
     S = pk_inf.shape[0]
     dev = pk_inf.device
     ax, ay, ainf = tc.to_affine_g1(_aggregate_jacobian(pk, pk_inf))
 
     rpk = tc.scalar_mul_g1(ax, ay, ainf, r_bits)
-    rsig = tc.scalar_mul_g2(sig[0], sig[1], sig_inf, r_bits)
     sub_ok = tc.subgroup_check_g2_fast(sig[0], sig[1], sig_inf).all()
 
-    sig_acc = pt_tree_sum(FP2_OPS, rsig, S)
+    if msm_idx is not None:
+        sig_acc = msm.msm_g2(sig[0], sig[1], msm_idx, msm_valid)
+    else:
+        rsig = tc.scalar_mul_g2(sig[0], sig[1], sig_inf, r_bits)
+        sig_acc = pt_tree_sum(FP2_OPS, rsig, S)
     sig_acc_aff = tc.to_affine_g2(tuple(c.unsqueeze(0) for c in sig_acc))
     rpk_aff = tc.to_affine_g1(rpk)
 
@@ -231,10 +242,15 @@ class TorchBackend:
     ``device_htc``: True hashes the messages on ``device`` (kernel K12 or
     the chained K13 -> add -> K14, by ``htc_resident``; their plain versions
     on the CPU), False with the host oracle; None (the default) picks the
-    device hash on the card and the host oracle on the CPU."""
+    device hash on the card and the host oracle on the CPU.
+
+    ``msm``: the fused path's signature accumulator. None (the default) and
+    True take the bucketed MSM (kernels K5-K7, their plain versions on the
+    CPU), as ``LHTPU_MSM_VERIFY`` defaults on; False the per-set scalar
+    multiplication (K3 G2) and tree. The classic path has no MSM."""
 
     def __init__(self, device=None, fused=None, device_htc=None,
-                 htc_resident=True):
+                 htc_resident=True, msm=None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -245,14 +261,17 @@ class TorchBackend:
         self.device = torch.device(device)
         self.fused = self.device.type == "cuda" if fused is None else bool(fused)
         self._core = _verify_core_fused if self.fused else _verify_core
+        self.msm = self.fused if msm is None else bool(msm)
+        if self.msm and not self.fused:
+            raise ValueError("TorchBackend: the MSM runs on the fused path only")
         self.device_htc = (self.device.type == "cuda" if device_htc is None
                            else bool(device_htc))
         self.htc_resident = bool(htc_resident)
         # Stage -> seconds of the most recent verify: pack / hash_to_curve
         # (with its sub-stages htc_dedup / htc_map / htc_cofactor) / scalars /
-        # dispatch / device_sync (empty after a host reject). Device work is
-        # asynchronous: a stage holds its host time, and device_sync the wait
-        # for the rest.
+        # msm_schedule (with the MSM only) / dispatch / device_sync (empty
+        # after a host reject). Device work is asynchronous: a stage holds its
+        # host time, and device_sync the wait for the rest.
         self.last_stage_seconds: dict = {}
         # Device of the operand tensors of the most recent dispatch.
         self.last_operand_device: torch.device | None = None
@@ -283,11 +302,19 @@ class TorchBackend:
             mx, my, minf = self._hash_messages([s.message for s in sets], S,
                                                inf2, stages)
         with _stage("scalars", stages):
-            _, r_bits = _rand_scalars(S)
+            r_u64, r_bits = _rand_scalars(S)
+        sched = None  # the fused core then takes the scan
+        if self.msm:
+            with _stage("msm_schedule", stages):
+                # None again when a bucket overflows max_rounds(S)
+                sched = msm.build_schedule(r_u64, msm.max_rounds(S),
+                                           np.arange(S) >= n)
         with _stage("dispatch", stages):
             ops = interop.operands_from_numpy(
                 px, py, pinf, sx, sy, sinf, mx, my, minf, r_bits, self.device
             )
+            if sched is not None:
+                ops += tuple(torch.from_numpy(a).to(self.device) for a in sched)
             self.last_operand_device = ops[1].device
             ok = self._core(*ops)
         with _stage("device_sync", stages):

@@ -30,7 +30,7 @@ from lighthouse_tpu.crypto.bls.hash_to_curve import hash_to_g2, map_to_curve_g2
 from lighthouse_tpu.crypto.bls.pairing import pairing as oracle_pairing
 from lighthouse_tpu.ops import points as jpoints
 from lighthouse_tpu_torch.crypto.bls.constants import P, X
-from lighthouse_tpu_torch.ops import _build, field, pairing, points, tower
+from lighthouse_tpu_torch.ops import _build, field, msm, pairing, points, tower
 from lighthouse_tpu_torch.ops import tkernel_calls as tc
 from lighthouse_tpu_torch.ops import tkernel_htc as th
 from lighthouse_tpu_torch.ops.points import FP2_OPS, FP_OPS
@@ -159,6 +159,7 @@ def test_fused_backend_matches_oracle(name, want):
     assert verify_signature_sets_python(sets) is want
     assert be.verify_signature_sets(sets) is want
     assert be.last_operand_device == torch.device("cpu")
+    assert be.msm and "msm_schedule" in be.last_stage_seconds  # the MSM's path
 
 
 def test_default_path_follows_device():
@@ -194,6 +195,11 @@ WRAPPERS = {
     "map_to_g2": lambda a: th.map_to_g2_resident(a(2, 2, *_FP2)),
     "sswu_iso": lambda a: th.sswu_iso(a(2, *_FP2)),
     "cofactor": lambda a: th.clear_cofactor((a(2, *_FP2), _i32(2, *_FP2), _i32(2, *_FP2))),
+    "subgroup_full": lambda a: tc.subgroup_check_g2(a(2, *_FP2), _i32(2, *_FP2), _mask(2)),
+    "msm_accum": lambda a: msm.accumulate(a(2, *_FP2), _i32(2, *_FP2), _i32(8, 240),
+                                          torch.zeros(8, 240, dtype=torch.bool)),
+    "msm_tree": lambda a: msm.tree((a(256, *_FP2), _i32(256, *_FP2), _i32(256, *_FP2))),
+    "msm_horner": lambda a: msm.horner((a(256, *_FP2), _i32(256, *_FP2), _i32(256, *_FP2))),
 }
 
 # A tensor on the meta device is not a CPU tensor, so it takes the kernel's

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, the fused verify kernels and the hash
-kernels) against their plain PyTorch versions.
+"""The port's CUDA kernels (K1, the fused verify kernels, the MSM kernels,
+the full-order subgroup check and the hash kernels) against their plain
+PyTorch versions.
 
 Imports only torch, numpy and the port, so it also runs on a GPU machine
 without JAX:
@@ -7,18 +8,23 @@ without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
 The ``cuda`` tests skip without a card (a CUDA kernel has no CPU mode);
-the wrapper's input checks run everywhere.
+the wrapper's input checks and the constants hard-coded in the new
+sources run everywhere.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from lighthouse_tpu_torch.crypto.bls.constants import P
-from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator
+from lighthouse_tpu_torch.crypto.bls.constants import R as ORDER
+from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator, g2_infinity
 from lighthouse_tpu_torch.crypto.bls.fields import Fq2
 from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2, map_to_curve_g2
-from lighthouse_tpu_torch.ops import field, htc, mont_mul, pairing, points
+from lighthouse_tpu_torch.ops import field, htc, mont_mul, msm, pairing, points
 from lighthouse_tpu_torch.ops import tkernel_calls as tc
 from lighthouse_tpu_torch.ops import tkernel_htc as th
 
@@ -187,6 +193,7 @@ def test_fused_kernels_launch_nothing_on_zero_lanes():
     assert tc.to_affine_g2((e2, e2, e2))[0].shape == (0, 2, 48)
     assert tc.scalar_mul_g1(e1, e1, m, b)[2].shape == (0, 48)
     assert tc.subgroup_check_g2_fast(e2, e2, m).shape == (0,)
+    assert tc.subgroup_check_g2(e2, e2, m).shape == (0,)
     assert tc.miller_loop((e1, e1), m, (e2, e2), m).shape == (0, 2, 3, 2, 48)
     assert tc.comb(f, f, "b").shape == (0, 2, 3, 2, 48)
     us = torch.empty(0, 2, 2, 48, dtype=torch.int32, device="cuda")
@@ -194,6 +201,91 @@ def test_fused_kernels_launch_nothing_on_zero_lanes():
     assert th.sswu_iso(e2)[2].shape == (0, 2, 48)
     assert th.clear_cofactor((e2, e2, e2))[1].shape == (0, 2, 48)
     assert {k.name: k.launches for k in tc._build.KERNELS} == before
+
+
+@pytest.mark.cuda
+def test_subgroup_full_kernel_matches_plain_and_fast():
+    """K15 against its plain version and against K4 on points in and out
+    of G2 and a lane at infinity."""
+    _card()
+    g = g2_generator()
+    pts = [g.mul(3), map_to_curve_g2(Fq2(2, 1)), g.mul(12345),
+           map_to_curve_g2(Fq2(5, 7)), g.mul(9)]
+    x, y, inf = _cuda(*points.g2_to_dev(pts))
+    inf[4] = True
+    before = tc.K15.launches
+    got = tc.subgroup_check_g2(x, y, inf)
+    assert tc.K15.launches == before + 1
+    plain = points.pt_subgroup_check(points.FP2_OPS,
+                                     points.pt_from_affine(points.FP2_OPS, x, y, inf))
+    assert _same(got, plain)
+    assert got.tolist() == tc.subgroup_check_g2_fast(x, y, inf).tolist() == \
+        [True, False, True, False, True]
+
+
+# ------------------------------------------------------- the MSM kernels
+# K5 (accumulate), K6 (tree) and K7 (Horner) against their plain versions on
+# 8 sets with the edge cases: a duplicate signature whose mixed addition
+# doubles, S and -S cancelling in a bucket before a further addition, empty
+# buckets, a skipped set; and with every set skipped.
+
+MSM_R = np.array([
+    0x1234567890ABCDE5, 0x0FEDCBA987654325, 0x1111111111111171,
+    0x2222222222222272, 0x3333333333333373, 0x4444444444444444,
+    0x5555555555555555, 0x6666666666666666,
+], np.uint64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skipped", ["one", "all"])
+def test_msm_kernels_match_plain_and_oracle(skipped):
+    _card()
+    g = g2_generator()
+    pts = [g.mul(3 + 7 * i) for i in range(8)]
+    pts[1] = pts[0]
+    pts[3] = pts[2].neg()
+    skip = np.ones(8, bool) if skipped == "all" else np.arange(8) == 7
+    idx, valid = msm.build_schedule(MSM_R, msm.max_rounds(8), skip)
+    sx, sy, _ = points.g2_to_dev(pts)
+    sx, sy, idx, valid = _cuda(sx, sy, idx, valid)
+    before = {k.name: k.launches for k in (msm.K5, msm.K6, msm.K7)}
+    B = msm.accumulate(sx, sy, idx, valid)
+    assert _same(B, msm.accum_plain(sx, sy, idx, valid))
+    T = msm.tree(B)
+    assert _same(T, msm.tree_plain(B))
+    H = msm.horner(T)
+    assert _same(H, msm.horner_plain(T))
+    assert {k.name: k.launches for k in (msm.K5, msm.K6, msm.K7)} == {
+        k: v + 1 for k, v in before.items()}
+    x, y, inf = tc.to_affine_g2(H)
+    want = g2_infinity()
+    for p, k, sk in zip(pts, MSM_R, skip):
+        if not sk:
+            want = want.add(p.mul(int(k)))
+    assert points.g2_from_dev(x, y, inf) == [want]
+
+
+# ------------------------------------------------- constants in the sources
+
+CSRC = Path(__file__).resolve().parent.parent / "lighthouse_tpu_torch" / "csrc"
+
+
+def test_subgroup_order_words_match_python():
+    text = (CSRC / "subgroup.cu").read_text()
+    body = re.search(r"\bkOrder\[[^=]*=\s*\{(.*?)\};", text, re.S).group(1)
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", body)]
+    assert words == [(ORDER >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+    top = int(re.search(r"kOrderTopBit = (\d+);", text).group(1))
+    assert top == ORDER.bit_length() - 1 == 254
+
+
+@pytest.mark.parametrize("name, value", [
+    ("kBuckets", msm.N_BUCKETS), ("kLanes", msm._LANES),
+    ("kWindows", msm.N_WINDOWS), ("kWindowBits", msm.WINDOW_BITS),
+])
+def test_msm_layout_constants_match_python(name, value):
+    text = (CSRC / "msm.cu").read_text()
+    assert int(re.search(rf"\b{name} = (\d+);", text).group(1)) == value
 
 
 # ------------------------------------------------------- the hash kernels
