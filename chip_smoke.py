@@ -16,9 +16,11 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    check K15 against its plain version on the card, at the shapes the fused
    path gives it and with its edge lanes (infinity, Z = 1, scalars 0, 1 and
    2^64-1, points outside G2): equality after ``canonical`` (and whether
-   the raw limbs match), K4 also against K15, the final-exponentiation
-   chain also against the classic ``pairing.final_exponentiation``; kernel
-   and plain times;
+   the raw limbs match; K8 and K10, one block per lane, must match raw),
+   K4 also against K15, the final-exponentiation chain also against the
+   classic ``pairing.final_exponentiation``; kernel and plain times; for K8
+   and K10 the product and add rounds per lane of their ``ops/coop.py``
+   programs, their shared memory and the time per round;
 5. the MSM kernels (K5 accumulate, K6 tree, K7 Horner) against their plain
    versions at the main path's shapes (the batch's 128 signatures, a
    schedule from seeded scalars, L = 48), on all 256 lanes (K7 on lane 0),
@@ -48,11 +50,11 @@ In order, and failing (nonzero exit, no result line) at the first fault:
 
 Kernel launch counts are zeroed just before each verify and read just after
 it. Each configuration has its list: the default fused path must launch K1,
-K2, K3 G1, K4, K5-K7 (once each), K8-K12 and not K3 G2, K13, K14 or K15;
-with ``msm=False`` K3 G2 and not K5-K7; with the chained hash K13 and K14
-and not K12; with the host hash none of K12-K14; the classic path K1 and
-none of the others. No verify launches K15: its launches are those of the
-K4-against-K15 check.
+K2, K3 G1, K4, K5-K7 (once each), K8-K12 (K8 once, K10 five times) and not
+K3 G2, K13, K14 or K15; with ``msm=False`` K3 G2 and not K5-K7; with the
+chained hash K13 and K14 and not K12; with the host hash none of K12-K14;
+the classic path K1 and none of the others. No verify launches K15: its
+launches are those of the K4-against-K15 check.
 
 Imports nothing of JAX or of the JAX package. Data comes from a seeded
 numpy generator (secret keys sk_i = base + i, so pk_{i+1} = pk_i + G1).
@@ -462,15 +464,17 @@ def compare(torch, got, want):
 
 
 def check_kernel(torch, kernel, label, run_kernel, run_plain, fp_products,
-                 nbytes, time_it=True) -> dict:
+                 nbytes, time_it=True, raw_only=False) -> dict:
     """One kernel against its plain version on the same inputs; raises
-    unless they agree after canonical. Returns the kernels-line entry."""
+    unless they agree after canonical, or, with ``raw_only``, unless the raw
+    limbs are equal. Returns the kernels-line entry."""
     got = run_kernel()
     torch.cuda.synchronize()
     want = run_plain()
     raw, canon, err = compare(torch, got, want)
-    if not canon:
-        raise AssertionError(f"{label}: kernel != plain (max |limb diff| {err})")
+    if not canon or (raw_only and not raw):
+        raise AssertionError(f"{label}: kernel != plain (raw limbs equal {raw}, "
+                             f"after canonical {canon}, max |limb diff| {err})")
     entry = {
         "name": kernel.name, "route": kernel.route, "source": kernel.source,
         "replaces": kernel.replaces, "variant": label, "launches": None,
@@ -486,6 +490,32 @@ def check_kernel(torch, kernel, label, run_kernel, run_plain, fp_products,
     return entry
 
 
+def coop_report(entry: dict, label: str, plan) -> tuple[int, int]:
+    """Log a block-per-lane kernel's rounds per lane (ops/coop.py), the
+    shared memory its wrapper hands the launch and its measured time per
+    round; return (product rounds, add rounds). The kernels-line entry
+    keeps only measured numbers, so none of these go into it."""
+    from lighthouse_tpu_torch.ops import coop
+
+    prod, add, products = coop.rounds_per_lane(plan)
+    log(f"{label}: one block of {coop.THREADS} threads per lane, "
+        f"{coop.shared_bytes(plan)} B of dynamic shared memory; per lane "
+        f"{prod} product rounds and {add} add rounds ({products} Fp products, "
+        f"which one thread ran in a row); {entry['ms']:.4f} ms = "
+        f"{entry['ms'] * 1e3 / (prod + add):.4f} us per round")
+    return prod, add
+
+
+def round_costs(a: tuple, b: tuple) -> tuple[float, float]:
+    """(us per product round, us per add round) solving time = product
+    rounds x p + add rounds x q for two block-per-lane kernels, each given
+    as (ms, (product rounds, add rounds))."""
+    (ta, (p1, q1)), (tb, (p2, q2)) = a, b
+    t1, t2 = ta * 1e3, tb * 1e3
+    det = p1 * q2 - p2 * q1
+    return (t1 * q2 - t2 * q1) / det, (p1 * t2 - p2 * t1) / det
+
+
 def check_fused_kernels(torch, np, sets, hashes) -> dict:
     """Every fused kernel against its plain version at the fused path's
     shapes; returns {kernel name: kernels-line entry}."""
@@ -493,7 +523,7 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     from lighthouse_tpu_torch.crypto.bls.curve import g1_generator
     from lighthouse_tpu_torch.crypto.bls.fields import Fq2
     from lighthouse_tpu_torch.crypto.bls.hash_to_curve import map_to_curve_g2
-    from lighthouse_tpu_torch.ops import pairing, points
+    from lighthouse_tpu_torch.ops import coop, pairing, points
     from lighthouse_tpu_torch.ops import tkernel_calls as tc
     from lighthouse_tpu_torch.ops.points import FP2_OPS, FP_OPS
 
@@ -578,11 +608,13 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     log("K4 agrees with K15, the full-order check [r]Q == inf, on the card on "
         "96 points in G2, 28 outside G2 and 4 at infinity")
 
-    # K8: S + 1 = 129 pairs, P at infinity on lane 3, Q on lane 125
+    # K8: S + 1 = 129 pairs, P at infinity on lane 3, Q on lane 125, both
+    # on lane 64; raw limbs
     g1 = g1_generator().neg()
     px, py, pinf = points.g1_to_dev([s.signing_keys[0].point for s in sets] + [g1])
     qx, qy, qinf = points.g2_to_dev(hashes + [sets[0].signature.point])
     pinf[3] = qinf[125] = True
+    pinf[64] = qinf[64] = True
     px, py, pinf_t, qx, qy, qinf_t = cuda((px, py, pinf, qx, qy, qinf))
     live = int((~(pinf | qinf)).sum())
     out[tc.K8.name] = check_kernel(
@@ -591,12 +623,14 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
         lambda: tc.miller_loop_seg((px, py), pinf_t, (qx, qy), qinf_t),
         live * (63 * (c["fp12_sqr"] + c["dbl_step"] + c["sparse"])
                 + 5 * (c["add_step"] + c["sparse"])),
-        (n + 1) * (2 * 192 + 2 * 384 + 2 + 2304))
+        (n + 1) * (2 * 192 + 2 * 384 + 2 + 2304), raw_only=True)
+    k8_rounds = coop_report(out[tc.K8.name], "K8", coop.miller_plan())
     f = tc.miller_loop_seg((px, py), pinf_t, (qx, qy), qinf_t)
 
     # K9-K11 at 1 lane (the path's) and 8 lanes, on Miller outputs
     k9 = c["fp12_inv"] + 2 * c["fp12_mul"] + 2 * c["fp12_frob"]
     k10 = 63 * c["fp12_sqr"] + 5 * c["fp12_mul"]
+    k10_rounds = {}
     k11 = {"b": c["fp12_frob"] + c["fp12_mul"],
            "c": 2 * c["fp12_frob"] + 2 * c["fp12_mul"],
            "final": c["fp12_sqr"] + 2 * c["fp12_mul"]}
@@ -612,7 +646,11 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
             e = check_kernel(
                 torch, tc.K10, f"K10 pow_x xm1={xm1} {m} lanes",
                 lambda: tc.pow_x(g, xm1), lambda: tc.pow_x_plain(g, xm1),
-                m * (k10 + (c["fp12_mul"] if xm1 else 0)), m * 2 * 2304)
+                m * (k10 + (c["fp12_mul"] if xm1 else 0)), m * 2 * 2304,
+                raw_only=True)
+            if m == 1:
+                k10_rounds[xm1] = (e["ms"], coop_report(e, f"K10 xm1={xm1}",
+                                                        coop.pow_x_plan(xm1)))
             if m == 1 and xm1:
                 out[tc.K10.name] = e
         u = tc.pow_x_plain(g, False)
@@ -623,6 +661,11 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
                 m * k11[mode], m * 3 * 2304)
             if m == 1 and mode == "c":
                 out[tc.K11.name] = e
+
+    product_us, add_us = round_costs((out[tc.K8.name]["ms"], k8_rounds),
+                                     k10_rounds[False])
+    log(f"one product round {product_us:.4f} us, one add round {add_us:.4f} us "
+        f"(K8's and K10's (x) times fitted to their rounds per lane)")
 
     # the 9-launch chain against the plain chain and the classic path
     f1 = f[:1].contiguous()
@@ -635,12 +678,12 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     classic = pairing.final_exponentiation(f1)
     r1, c1, _ = compare(torch, got, plain)
     r2, c2, _ = compare(torch, got, classic)
-    if not (c1 and c2):
+    if not (r1 and r2):
         raise AssertionError("final_exp_kernel disagrees with the plain chain "
-                             "or pairing.final_exponentiation")
-    log(f"final_exp_kernel (9 launches): equal after canonical to the plain "
-        f"chain ({c1}, raw {r1}) and to pairing.final_exponentiation ({c2}, "
-        f"raw {r2})")
+                             "or pairing.final_exponentiation in its raw limbs")
+    log(f"final_exp_kernel (9 launches): equal to the plain chain (raw {r1}, "
+        f"after canonical {c1}) and to pairing.final_exponentiation (raw "
+        f"{r2}, after canonical {c2})")
     return out
 
 
@@ -1090,6 +1133,12 @@ def main() -> int:
         if any(run["launches"][name] != 1 for name in msm_names):
             raise AssertionError(f"the MSM kernels did not run once each: "
                                  f"{[run['launches'][m] for m in msm_names]}")
+        # the block-per-lane kernels: the Miller loop once, the x-power five
+        # times (the 9-launch final exponentiation)
+        if (run["launches"][tc.K8.name], run["launches"][tc.K10.name]) != (1, 5):
+            raise AssertionError(
+                f"K8 and K10 launched {run['launches'][tc.K8.name]} and "
+                f"{run['launches'][tc.K10.name]} times, not 1 and 5")
     # the same batches with the scan, then the host hash and the classic path
     scan_runs = verify_path(torch, sets, "fused scan", *paths["fused scan"])
     host_runs = verify_path(torch, sets, "fused host-hash", *paths["fused host-hash"],

@@ -12,16 +12,21 @@
 // Each computes what its plain version in ops/tkernel_calls.py computes,
 // limb for limb; chained, they equal ops/pairing.py final_exponentiation.
 //
-// What bounds them on an H100: integer multiplies. A K10 lane is 63 Fp12
-// squarings and 5 products in a dependent chain (~2,540 Fp products), K9
-// ~870 including an Fp inversion, a K11 lane 75-150; each reads one or two
-// 2,304 B Fp12 values and writes one.
+// What bounds them on an H100: the latency of a lane's dependent chain.
+// A verify runs the chain on ONE lane (pairs are reduced to one Fp12 by
+// fp12_tree_prod first), far too few lanes to fill the card's multiply
+// throughput. K9 (~870 Fp products with an inversion) and K11 (75-150)
+// run one thread per lane, the Fp12 values in registers and local memory.
 //
-// What the design does about it: one thread per lane, the Fp12 values in
-// registers and local memory. A verify runs the chain on ONE lane, so the
-// kernels run one thread on one SM of 132: the chain's latency is the cost.
-// Spreading an Fp12 product over a warp is later work.
+// K10 (63 Fp12 squarings and 5 products, ~2,540 Fp products) is one block
+// per lane (coop.cuh) running ops/coop.py pow_x_plan(xm1): each squaring
+// or product is a program whose 36 or 54 independent Fp products run in
+// one round on 64 threads, with the additions around them in 11-12 further
+// rounds. A lane is then 68 product rounds and ~810 add rounds deep (one
+// thread: ~2,540 products in a row), and its time is those rounds times
+// one round's latency.
 
+#include "coop.cuh"
 #include "curve.cuh"
 #include "lanes.cuh"
 
@@ -30,19 +35,6 @@ namespace {
 using namespace bls;
 
 constexpr int W12 = 12 * kWords;  // int4 per Fp12 value
-
-// f^x for f in the cyclotomic subgroup (ops/pairing.py _cyc_pow_x):
-// f^|x| by square-and-multiply over |x|'s bits below the leading one,
-// then conj because x < 0.
-__device__ __noinline__ Fp12 cyc_pow_x(const Fp12& f) {
-  Fp12 acc = f;
-#pragma unroll 1
-  for (int b = kXTopBit - 1; b >= 0; --b) {
-    acc = sqr(acc);
-    if (x_bit(b)) acc = mul(acc, f);
-  }
-  return conj(acc);
-}
 
 __global__ void __launch_bounds__(kLaneThreads)
     easy_exp_kernel(const int4* __restrict__ f, int4* __restrict__ out,
@@ -55,16 +47,12 @@ __global__ void __launch_bounds__(kLaneThreads)
   store(out + i * W12, mul(frobenius2(g), g));
 }
 
-__global__ void __launch_bounds__(kLaneThreads)
-    pow_x_kernel(const int4* __restrict__ f, int4* __restrict__ out, int xm1,
-                 long long n) {
-  const long long i = lane_index();
-  if (i >= n) return;
-  Fp12 a;
-  load(a, f + i * W12);
-  Fp12 p = cyc_pow_x(a);
-  if (xm1) p = mul(p, conj(a));
-  store(out + i * W12, p);
+// f^x (ops/pairing.py _cyc_pow_x) for f in the cyclotomic subgroup, or
+// f^(x-1) on the xm1 plan: one block per lane.
+__global__ void __launch_bounds__(kCoopThreads)
+    pow_x_kernel(const int4* __restrict__ f, const int16_t* __restrict__ prog,
+                 int4* __restrict__ out, int prog_len) {
+  coop::run_lane(prog, prog_len, coop::Inputs{{f}}, out, blockIdx.x, false);
 }
 
 __global__ void __launch_bounds__(kLaneThreads)
@@ -97,12 +85,15 @@ extern "C" int lh_easy_exp(const void* f, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int lh_pow_x(const void* f, void* out, int xm1, long long n,
+// prog: ops/coop.py pack(pow_x_plan(xm1)), prog_len int16 values, and
+// smem_bytes its shared_bytes.
+extern "C" int lh_pow_x(const void* f, const void* prog, void* out,
+                        int smem_bytes, int prog_len, long long n,
                         void* stream) {
   if (n <= 0) return 0;
-  pow_x_kernel<<<lane_blocks(n), kLaneThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)f, (int4*)out, xm1, n);
-  return (int)cudaGetLastError();
+  return coop::launch(pow_x_kernel, n, smem_bytes, (cudaStream_t)stream,
+                      (const int4*)f, (const int16_t*)prog, (int4*)out,
+                      prog_len);
 }
 
 // mode: 0 = b, 1 = c, 2 = final.

@@ -1,9 +1,14 @@
-// One thread per lane: the launch shape every fused kernel shares.
+// The two launch shapes of the fused kernels.
 //
-// A lane (one point, one pair, one Fp12 value) runs its whole chain in one
-// thread. Blocks are small (32 threads) so that the 128-129 lanes of a
-// verify spread over several SMs; the last block is ragged and its extra
-// threads return at once.
+// One thread per lane (most kernels): a lane (one point, one pair, one
+// Fp12 value) runs its whole chain in one thread. Blocks are small (32
+// threads) so that the 128-129 lanes of a verify spread over several SMs;
+// the last block is ragged and its extra threads return at once.
+//
+// One block per lane (K8, K10; coop.cuh): a lane's independent Fp
+// operations run side by side on kCoopThreads threads, 64 so that the
+// widest round of a program (an Fp12 product's 54 Fp products, f^2 beside
+// the doubling step's first level, 45) takes one pass.
 //
 // Every entry point of the fused kernels is extern "C" and takes its
 // pointers first, then its int options, the lane count and the stream, and
@@ -20,6 +25,8 @@ constexpr int kLaneThreads = 32;
 inline unsigned int lane_blocks(long long n) {
   return (unsigned int)((n + kLaneThreads - 1) / kLaneThreads);
 }
+
+constexpr int kCoopThreads = 64;  // ops/coop.py THREADS
 
 __device__ __forceinline__ long long lane_index() {
   return (long long)blockIdx.x * blockDim.x + threadIdx.x;

@@ -183,10 +183,6 @@ __device__ __noinline__ Fp2 sqr(const Fp2& a) {
   return {mul(s, d), dbl(mul(a.c0, a.c1))};
 }
 
-__device__ __forceinline__ Fp2 mul_fp(const Fp2& a, const Fp& k) {
-  return {mul(a.c0, k), mul(a.c1, k)};
-}
-
 // times xi = 1 + u: (c0 - c1, c0 + c1)
 __device__ __forceinline__ Fp2 mul_by_xi(const Fp2& a) {
   return {sub(a.c0, a.c1), add(a.c0, a.c1)};

@@ -1,0 +1,609 @@
+"""Straight-line Fp programs for the block-per-lane kernels K8 and K10.
+
+A lane-step of the Miller loop (one bit of |x|) or of the cyclotomic
+x-power (a squaring, a product) is written out here as a list of Fp
+operations on numbered slots, each ``(op, dst, a, b)`` with op one of
+``MUL``, ``ADD``, ``SUB``, ``NEG``. The operations are those of the plain
+versions' expression trees, op for op: the Karatsuba terms of
+``ops/tower.py``, the doubling and addition steps of ``ops/pairing.py``,
+the sparse line product of ``ops/tkernel_pairing.py``, each add and sub
+with the same operands in the same order. So a program gives the plain
+version's limbs exactly, whoever runs each operation.
+
+The operations are grouped into rounds: no operation of a round reads a
+slot that another operation of the round writes, and no two write one
+slot. A kernel block (``csrc/coop.cuh``) runs a round's operations on its
+threads side by side and meets at a barrier before the next round. The
+schedule keeps the products few rounds deep: a product runs in round
+``k`` of the products when the longest chain of products into it has ``k``
+of them, and the additions between two product rounds take as many rounds
+as their longest chain there. A program's first inputs sit in fixed slots
+that its outputs overwrite (each write after every read of the old
+value), so a kernel runs the step again on its own output; the other
+values share the remaining slots by lifetime.
+
+A :class:`Plan` is all a kernel's block does for its lane: the loads
+that fill the fixed slots from the kernel's inputs, the programs and the
+order of their steps (one per bit of |x|), and the slots it stores.
+:func:`to_device` packs a plan into the ``int16`` tensor the kernel reads,
+cached per device, so the kernel's source names no slot, program or bit.
+:func:`run_program` runs a program on CPU tensors with the port's
+``ops/field.py`` operations, one call per operation kind and round, and
+:func:`run_plan` a whole plan: the plain model of what a block does.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import field
+from .field import const
+from .points import X_BITS
+from .tower import FP2_ONE
+
+MUL, ADD, SUB, NEG = 0, 1, 2, 3
+_COMMUTES = (MUL, ADD)
+
+# Threads per block (one lane) of K8 and K10 (csrc/lanes.cuh kCoopThreads):
+# a round's operations are dealt to them in turn.
+THREADS = 64
+
+# Fixed slots. K10: the accumulator and the base f, 12 Fp each (the
+# [2, 3, 2] coefficients in order). K8: f, then T = (X, Y, Z), then P's
+# (xp, yp) and Q's (xq, yq).
+POW_ACC, POW_BASE = 0, 12
+MIL_F, MIL_T, MIL_XP, MIL_YP, MIL_XQ, MIL_YQ = 0, 12, 18, 19, 20, 22
+N_FIXED = 24
+
+# Program indices: K10's pow_x_programs(), K8's miller_programs().
+POW_SQR, POW_MUL, POW_CONJ_MUL = 0, 1, 2
+MIL_DBL, MIL_ADD = 0, 1
+
+
+# ---------------------------------------------------------------- tracing
+
+
+class _Trace:
+    """Records Fp operations on symbolic values. Values below ``N_FIXED``
+    are the fixed input slots; operation ``i`` makes value ``N_FIXED + i``.
+    An operation already recorded with the same operands is not recorded
+    twice (the stacked plain versions compute some sums more than once:
+    the same limbs)."""
+
+    def __init__(self):
+        self.ops: list[tuple[int, int, int]] = []
+        self._seen: dict[tuple[int, int, int], int] = {}
+
+    def _op(self, kind: int, a: int, b: int) -> int:
+        key = (kind, *sorted((a, b))) if kind in _COMMUTES else (kind, a, b)
+        if key not in self._seen:
+            self.ops.append((kind, a, b))
+            self._seen[key] = N_FIXED + len(self.ops) - 1
+        return self._seen[key]
+
+    def mul(self, a, b):
+        return self._op(MUL, a, b)
+
+    def add(self, a, b):
+        return self._op(ADD, a, b)
+
+    def sub(self, a, b):
+        return self._op(SUB, a, b)
+
+    def neg(self, a):
+        return self._op(NEG, a, a)
+
+
+# Tower values are nested tuples of value ids: Fp2 (c0, c1), Fp6 three Fp2,
+# Fp12 two Fp6, in the order of the torch layout's axes.
+
+
+def _each(fn, *xs):
+    if isinstance(xs[0], tuple):
+        return tuple(_each(fn, *ys) for ys in zip(*xs))
+    return fn(*xs)
+
+
+def _fixed(start: int, shape) -> tuple:
+    """Nested tuple of consecutive fixed slots: shape (2,) is an Fp2,
+    (3, 2) an Fp6, (2, 3, 2) an Fp12."""
+    if not shape:
+        return start
+    step = int(np.prod(shape[1:], dtype=np.int64))
+    return tuple(_fixed(start + i * step, shape[1:]) for i in range(shape[0]))
+
+
+def _flat(x) -> list[int]:
+    return [v for y in x for v in _flat(y)] if isinstance(x, tuple) else [x]
+
+
+class _Tower:
+    """ops/tower.py, ops/pairing.py and ops/tkernel_pairing.py on a trace."""
+
+    def __init__(self, t: _Trace):
+        self.t = t
+
+    def add(self, a, b):
+        return _each(self.t.add, a, b)
+
+    def sub(self, a, b):
+        return _each(self.t.sub, a, b)
+
+    def neg(self, a):
+        return _each(self.t.neg, a)
+
+    def dbl(self, a):
+        return self.add(a, a)
+
+    # Fp2
+    def fp2_mul(self, a, b):
+        t = self.t
+        sa, sb = t.add(a[0], a[1]), t.add(b[0], b[1])
+        t0, t1, t2 = t.mul(a[0], b[0]), t.mul(a[1], b[1]), t.mul(sa, sb)
+        return (t.sub(t0, t1), t.sub(t.sub(t2, t0), t1))
+
+    def fp2_sqr(self, a):
+        t = self.t
+        s, d = t.add(a[0], a[1]), t.sub(a[0], a[1])
+        m = t.mul(a[0], a[1])
+        return (t.mul(s, d), t.add(m, m))
+
+    def fp2_mul_fp(self, a, k):
+        return (self.t.mul(a[0], k), self.t.mul(a[1], k))
+
+    def xi(self, a):
+        return (self.t.sub(a[0], a[1]), self.t.add(a[0], a[1]))
+
+    # Fp6
+    def fp6_mul(self, a, b):
+        a0, a1, a2 = a
+        b0, b1, b2 = b
+        t0, t1, t2 = self.fp2_mul(a0, b0), self.fp2_mul(a1, b1), self.fp2_mul(a2, b2)
+        s12 = self.fp2_mul(self.add(a1, a2), self.add(b1, b2))
+        s01 = self.fp2_mul(self.add(a0, a1), self.add(b0, b1))
+        s02 = self.fp2_mul(self.add(a0, a2), self.add(b0, b2))
+        u0 = self.sub(self.sub(s12, t1), t2)
+        u1 = self.sub(self.sub(s01, t0), t1)
+        u2 = self.sub(self.sub(s02, t0), t2)
+        return (self.add(self.xi(u0), t0), self.add(u1, self.xi(t2)),
+                self.add(u2, t1))
+
+    def v(self, a):
+        return (self.xi(a[2]), a[0], a[1])
+
+    # Fp12
+    def fp12_mul(self, a, b):
+        sa, sb = self.add(a[0], a[1]), self.add(b[0], b[1])
+        t0, t1 = self.fp6_mul(a[0], b[0]), self.fp6_mul(a[1], b[1])
+        s = self.fp6_mul(sa, sb)
+        return (self.add(t0, self.v(t1)), self.sub(self.sub(s, t0), t1))
+
+    def fp12_sqr(self, a):
+        a0, a1 = a
+        s0, s1 = self.add(a0, a1), self.add(a0, self.v(a1))
+        t0, s = self.fp6_mul(a0, a1), self.fp6_mul(s0, s1)
+        return (self.sub(self.sub(s, t0), self.v(t0)), self.add(t0, t0))
+
+    def fp12_conj(self, a):
+        return (a[0], self.neg(a[1]))
+
+    # Miller loop
+    def dbl_step(self, T):
+        X, Y, Z = T
+        A, B = self.fp2_sqr(X), self.fp2_sqr(Y)
+        Zh, Zsq = self.fp2_mul(Y, Z), self.fp2_sqr(Z)
+        C, S = self.fp2_sqr(B), self.fp2_sqr(self.add(X, B))
+        D = self.dbl(self.sub(self.sub(S, A), C))
+        E = self.add(self.dbl(A), A)
+        F, EX, EZ = self.fp2_sqr(E), self.fp2_mul(E, X), self.fp2_mul(E, Zsq)
+        X3 = self.sub(F, self.dbl(D))
+        Z3 = self.dbl(Zh)
+        Y3a, lC = self.fp2_mul(E, self.sub(D, X3)), self.fp2_mul(Z3, Zsq)
+        Y3 = self.sub(Y3a, self.dbl(self.dbl(self.dbl(C))))
+        lA = self.sub(EX, self.dbl(B))
+        return (X3, Y3, Z3), (lA, self.neg(EZ), lC)
+
+    def add_step(self, T, xq, yq):
+        X1, Y1, Z1 = T
+        Z1Z1 = self.fp2_sqr(Z1)
+        U2, Tz = self.fp2_mul(xq, Z1Z1), self.fp2_mul(Z1, Z1Z1)
+        S2 = self.fp2_mul(yq, Tz)
+        H = self.sub(U2, X1)
+        r = self.dbl(self.sub(S2, Y1))
+        H2, Z1H = self.dbl(H), self.add(Z1, H)
+        I, HH = self.fp2_sqr(H2), self.fp2_sqr(H)
+        ZS, rr = self.fp2_sqr(Z1H), self.fp2_sqr(r)
+        J, V = self.fp2_mul(H, I), self.fp2_mul(X1, I)
+        X3 = self.sub(self.sub(rr, J), self.dbl(V))
+        Z3 = self.sub(self.sub(ZS, Z1Z1), HH)
+        Y3a, Y3b = self.fp2_mul(r, self.sub(V, X3)), self.fp2_mul(Y1, J)
+        lA1, lA2 = self.fp2_mul(r, xq), self.fp2_mul(Z3, yq)
+        Y3 = self.sub(Y3a, self.dbl(Y3b))
+        return (X3, Y3, Z3), (self.sub(lA1, lA2), self.neg(r), Z3)
+
+    def mul_line_sparse(self, f, line, xp, yp):
+        A, B, C = line
+        bxp, cyp = self.fp2_mul_fp(B, xp), self.fp2_mul_fp(C, yp)
+        (f00, f01, f02), (g0, g1, g2) = f
+        s0, s1, s2 = self.add(f[0], f[1])
+        Bc = self.add(bxp, cyp)
+        m = self.fp2_mul
+        m0, m1 = m(f00, A), m(f01, bxp)
+        mx = m(self.add(f00, f01), self.add(A, bxp))
+        mu, mv = m(f02, bxp), m(f02, A)
+        w2, w0, w1 = m(g2, cyp), m(g0, cyp), m(g1, cyp)
+        n0, n1 = m(s0, A), m(s1, Bc)
+        nx = m(self.add(s0, s1), self.add(A, Bc))
+        nu, nv = m(s2, Bc), m(s2, A)
+        t0 = (self.add(m0, self.xi(mu)), self.sub(self.sub(mx, m0), m1),
+              self.add(m1, mv))
+        t1 = (self.xi(w2), w0, w1)
+        ts = (self.add(n0, self.xi(nu)), self.sub(self.sub(nx, n0), n1),
+              self.add(n1, nv))
+        return (self.add(t0, self.v(t1)), self.sub(self.sub(ts, t0), t1))
+
+
+# ------------------------------------------------------------- scheduling
+
+
+@dataclass(frozen=True)
+class Program:
+    """A scheduled lane-step: ``rounds[r]`` is an int array [k, 4] of
+    (op, dst, a, b) slot operations, products first; ``n_slots`` the slots
+    it touches. ``product_rounds`` and ``add_rounds`` count the rounds with
+    and without a product."""
+
+    name: str
+    rounds: tuple
+    n_slots: int
+
+    @property
+    def product_rounds(self) -> int:
+        return sum(bool((r[:, 0] == MUL).any()) for r in self.rounds)
+
+    @property
+    def add_rounds(self) -> int:
+        return len(self.rounds) - self.product_rounds
+
+    @property
+    def products(self) -> int:
+        return sum(int((r[:, 0] == MUL).sum()) for r in self.rounds)
+
+
+def _schedule(name: str, t: _Trace, outputs: dict[int, int]) -> Program:
+    """Rounds and slots for the trace's operations; ``outputs`` maps a
+    fixed slot to the value written there."""
+    n = len(t.ops)
+    made = {v: s for s, v in outputs.items()}
+    if len(made) != len(outputs) or any(v < N_FIXED for v in made):
+        raise ValueError(f"{name}: each output must be a distinct computed value")
+    # stage: products on the longest chain into a value; depth: operations
+    # of that stage on the longest chain (products have depth 0)
+    stage = [0] * (N_FIXED + n)
+    depth = [0] * (N_FIXED + n)
+    for i, (kind, a, b) in enumerate(t.ops):
+        v = N_FIXED + i
+        stage[v] = max(stage[a], stage[b]) + (kind == MUL)
+        if kind != MUL:
+            depth[v] = 1 + max(depth[u] for u in (a, b) if stage[u] == stage[v])
+    n_stages = max(stage[N_FIXED:]) + 1
+    adds = [0] * n_stages
+    for v in range(N_FIXED, N_FIXED + n):
+        adds[stage[v]] = max(adds[stage[v]], depth[v])
+    # round index: stage k's adds follow its product round
+    first = []
+    r = 0
+    for k in range(n_stages):
+        first.append(r)
+        r += (k > 0) + adds[k]
+    n_rounds = r
+    rnd = [0] * n
+    for i in range(n):
+        v = N_FIXED + i
+        k = stage[v]
+        rnd[i] = first[k] + (depth[v] - 1 if k == 0 else depth[v])
+    # every read of a fixed slot precedes the output write that replaces it
+    last_read = [-1] * (N_FIXED + n)
+    for i, (_, a, b) in enumerate(t.ops):
+        for u in (a, b):
+            last_read[u] = max(last_read[u], rnd[i])
+    for s, v in outputs.items():
+        if rnd[v - N_FIXED] <= last_read[s]:
+            raise ValueError(f"{name}: output slot {s} is written before its "
+                             f"last read")
+    # slots: outputs in place; other values reuse a slot freed in an
+    # earlier round
+    slot = list(range(N_FIXED)) + [-1] * n
+    order = sorted(range(n), key=lambda i: rnd[i])
+    free: list[int] = []
+    releases: dict[int, list[int]] = {}
+    used = N_FIXED
+    for i in order:
+        v = N_FIXED + i
+        for rr in sorted(k for k in releases if k < rnd[i]):
+            free.extend(releases.pop(rr))
+        if v in made:
+            slot[v] = made[v]
+        elif free:
+            slot[v] = free.pop()
+        else:
+            slot[v] = used
+            used += 1
+        if v not in made:
+            releases.setdefault(max(last_read[v], rnd[i]), []).append(slot[v])
+    rounds = [[] for _ in range(n_rounds)]
+    for i, (kind, a, b) in enumerate(t.ops):
+        rounds[rnd[i]].append((kind, slot[N_FIXED + i], slot[a], slot[b]))
+    return Program(
+        name=name,
+        rounds=tuple(np.array(sorted(r, key=lambda o: o[0] != MUL), np.int64).reshape(-1, 4)
+                     for r in rounds),
+        n_slots=used,
+    )
+
+
+def check_rounds(p: Program) -> None:
+    """Raise unless every round of ``p`` reads no slot that it writes and
+    writes no slot twice, and every slot lies below ``p.n_slots``."""
+    for r, ops in enumerate(p.rounds):
+        dst = ops[:, 1].tolist()
+        if len(set(dst)) != len(dst):
+            raise AssertionError(f"{p.name} round {r}: a slot written twice")
+        if set(dst) & set(ops[:, 2:].ravel().tolist()):
+            raise AssertionError(f"{p.name} round {r}: a slot read and written")
+        if ops.size and (ops[:, 1:].max() >= p.n_slots or ops[:, 1:].min() < 0):
+            raise AssertionError(f"{p.name} round {r}: a slot out of range")
+
+
+# ------------------------------------------------------------ the programs
+
+
+def _program(name: str, body) -> Program:
+    t = _Trace()
+    outputs = body(_Tower(t))
+    return _schedule(name, t, {s: v for s, v in outputs})
+
+
+def _outputs(start: int, value) -> list[tuple[int, int]]:
+    return list(enumerate(_flat(value), start))
+
+
+def _fp12(start):
+    return _fixed(start, (2, 3, 2))
+
+
+@functools.cache
+def pow_x_programs() -> tuple[Program, ...]:
+    """K10's steps: acc = acc^2; acc = acc f; acc = conj(acc) conj(f)."""
+    acc, base = _fp12(POW_ACC), _fp12(POW_BASE)
+    return (
+        _program("fp12_sqr", lambda w: _outputs(POW_ACC, w.fp12_sqr(acc))),
+        _program("fp12_mul", lambda w: _outputs(POW_ACC, w.fp12_mul(acc, base))),
+        _program("conj_mul", lambda w: _outputs(
+            POW_ACC, w.fp12_mul(w.fp12_conj(acc), w.fp12_conj(base)))),
+    )
+
+
+def _miller_inputs():
+    T = tuple(_fixed(MIL_T + 2 * i, (2,)) for i in range(3))
+    return (_fp12(MIL_F), T, MIL_XP, MIL_YP, _fixed(MIL_XQ, (2,)),
+            _fixed(MIL_YQ, (2,)))
+
+
+def _miller_dbl(w: _Tower):
+    f, T, xp, yp, _, _ = _miller_inputs()
+    f2 = w.fp12_sqr(f)
+    T2, line = w.dbl_step(T)
+    return _outputs(MIL_F, w.mul_line_sparse(f2, line, xp, yp)) + _outputs(MIL_T, T2)
+
+
+def _miller_add(w: _Tower):
+    f, T, xp, yp, xq, yq = _miller_inputs()
+    T2, line = w.add_step(T, xq, yq)
+    return _outputs(MIL_F, w.mul_line_sparse(f, line, xp, yp)) + _outputs(MIL_T, T2)
+
+
+@functools.cache
+def miller_programs() -> tuple[Program, ...]:
+    """K8's steps: a doubling bit (f^2, the doubling step, the sparse line
+    product) and an addition bit (the addition step, the sparse line
+    product)."""
+    return (_program("miller_dbl", _miller_dbl), _program("miller_add", _miller_add))
+
+
+def _x_steps(per_bit: int, per_one: int) -> list[int]:
+    """Program ``per_bit`` for each bit of |x| below the leading one,
+    ``per_one`` after each one bit."""
+    steps = []
+    for bit in X_BITS:
+        steps += [per_bit] + ([per_one] if bit == "1" else [])
+    return steps
+
+
+# ---------------------------------------------------------------- plans
+
+# Load sources that are constants (csrc/coop.cuh kZero, kOne).
+ZERO, ONE = -1, -2
+
+
+@dataclass(frozen=True, eq=False)
+class Plan:
+    """What a kernel's block does for its lane. ``loads`` fill the fixed
+    slots, each (slot, source, stride, k): the lane's Fp value ``k`` of
+    input ``source`` (``stride`` Fp values per lane), or ``ZERO`` / ``ONE``.
+    ``steps`` index ``programs`` and run in turn. ``stores`` are the lane's
+    outputs in order, each (slot, negate), negated where asked (a
+    conjugate's c1); a lane the kernel skips runs no step and stores its
+    loaded slots as they are."""
+
+    name: str
+    programs: tuple
+    loads: tuple
+    steps: tuple
+    stores: tuple
+
+    @property
+    def n_slots(self) -> int:
+        return max(p.n_slots for p in self.programs)
+
+
+def rounds_per_lane(plan: Plan) -> tuple[int, int, int]:
+    """(product rounds, add rounds, Fp products) of one lane of ``plan``."""
+    n = np.bincount(np.asarray(plan.steps, np.int64), minlength=len(plan.programs))
+    return tuple(int(sum(k * getattr(p, a) for k, p in zip(n, plan.programs)))
+                 for a in ("product_rounds", "add_rounds", "products"))
+
+
+@functools.cache
+def pow_x_plan(xm1: bool) -> Plan:
+    """K10 on the input f (12 Fp per lane): acc = f; a squaring per bit of
+    |x| below the leading one and a product with f after each one bit; then
+    conj(acc) because x < 0, or on ``xm1`` the tail conj(acc) conj(f)
+    (f^(x-1))."""
+    steps = _x_steps(POW_SQR, POW_MUL) + ([POW_CONJ_MUL] if xm1 else [])
+    return Plan(
+        name="pow_x_xm1" if xm1 else "pow_x",
+        programs=pow_x_programs(),
+        loads=tuple((s + k, 0, 12, k) for s in (POW_ACC, POW_BASE) for k in range(12)),
+        steps=tuple(steps),
+        stores=tuple((POW_ACC + k, not xm1 and k >= 6) for k in range(12)),
+    )
+
+
+@functools.cache
+def miller_plan() -> Plan:
+    """K8 on the inputs (xp, yp, xq, yq): f = 1, T = (xq, yq, 1); a
+    doubling bit per bit of |x| below the leading one and an addition bit
+    after each one bit; then conj(f) because x < 0. The kernel skips a lane
+    with P or Q at infinity, which stores f = 1."""
+    xp, yp, xq, yq = range(4)
+    loads = [(MIL_F + k, ONE if k == 0 else ZERO, 0, 0) for k in range(12)]
+    for start, src in ((MIL_T, xq), (MIL_T + 2, yq), (MIL_XQ, xq), (MIL_YQ, yq)):
+        loads += [(start + k, src, 2, k) for k in range(2)]
+    loads += [(MIL_T + 4, ONE, 0, 0), (MIL_T + 5, ZERO, 0, 0),
+              (MIL_XP, xp, 1, 0), (MIL_YP, yp, 1, 0)]
+    return Plan(
+        name="miller",
+        programs=miller_programs(),
+        loads=tuple(loads),
+        steps=tuple(_x_steps(MIL_DBL, MIL_ADD)),
+        stores=tuple((MIL_F + k, k >= 6) for k in range(12)),
+    )
+
+
+# ------------------------------------------------------- the plain model
+
+
+def run_program(p: Program, slots: torch.Tensor) -> None:
+    """Run ``p`` in place on ``slots`` (int32 [lanes, >= p.n_slots, 48]):
+    each round's operations of one kind as one batched ``ops/field.py``
+    call."""
+    fns = {MUL: field.mont_mul, ADD: field.add, SUB: field.sub}
+    for ops in p.rounds:
+        results = []
+        for kind in (MUL, ADD, SUB, NEG):
+            o = torch.from_numpy(ops[ops[:, 0] == kind])
+            if not len(o):
+                continue
+            a = slots[:, o[:, 2]]
+            r = field.neg(a) if kind == NEG else fns[kind](a, slots[:, o[:, 3]])
+            results.append((o[:, 1], r))
+        for dst, r in results:
+            slots[:, dst] = r
+
+
+def run_plan(plan: Plan, inputs, skip=None) -> torch.Tensor:
+    """What the kernel's blocks do, on CPU tensors: ``inputs`` as the
+    plan's loads read them (int32, ``stride`` x 48 per lane), ``skip`` a
+    bool [n] of lanes to skip; returns int32 [n, len(plan.stores), 48]."""
+    n, dev = inputs[0].shape[0], inputs[0].device
+    fill = {ZERO: torch.zeros(field.N_LIMBS, dtype=torch.int32, device=dev),
+            ONE: const(FP2_ONE, dev)[0]}
+    slots = torch.zeros(n, plan.n_slots, field.N_LIMBS, dtype=torch.int32, device=dev)
+    for slot, src, stride, k in plan.loads:
+        slots[:, slot] = fill[src] if src < 0 else \
+            inputs[src].reshape(n, stride, field.N_LIMBS)[:, k]
+    idx = [s for s, _ in plan.stores]
+    loaded = slots[:, idx].clone()
+    for step in plan.steps:
+        run_program(plan.programs[step], slots)
+    out = slots[:, idx]
+    negate = torch.tensor([bool(g) for _, g in plan.stores], device=dev)
+    out = torch.where(negate[:, None], field.neg(out), out)
+    if skip is not None:
+        out = torch.where(skip[:, None, None], loaded, out)
+    return out
+
+
+def pow_x_steps(f: torch.Tensor, xm1: bool) -> torch.Tensor:
+    """K10's plan on the CPU: f^x, or f^x conj(f) when ``xm1``
+    (f: Fp12 [n, 2, 3, 2, 48], cyclotomic)."""
+    return run_plan(pow_x_plan(xm1), (f,)).reshape(-1, 2, 3, 2, field.N_LIMBS)
+
+
+def miller_steps(p_aff, p_inf, q_aff, q_inf) -> torch.Tensor:
+    """K8's plan on the CPU: the Miller loop per (P, Q) lane, conj for
+    x < 0, Fp12 one where P or Q is at infinity."""
+    out = run_plan(miller_plan(), (*p_aff, *q_aff), p_inf | q_inf)
+    return out.reshape(-1, 2, 3, 2, field.N_LIMBS)
+
+
+# ------------------------------------------------------------ the packing
+
+# int16 values before the program offsets (csrc/coop.cuh kHeader).
+HEADER = 5
+
+
+def pack(plan: Plan) -> np.ndarray:
+    """A plan as one int16 array, the layout csrc/coop.cuh reads: [n_slots,
+    n_programs, n_loads, n_stores, n_steps], the offset of each program,
+    the loads (4 values each), the stores (2 each), the steps; then each
+    program: [n_rounds, start of each round and the end (op indices), then
+    4 values per op (op, dst, a, b)]."""
+    ps = plan.programs
+    head = [plan.n_slots, len(ps), len(plan.loads), len(plan.stores), len(plan.steps)]
+    table = [v for ld in plan.loads for v in ld] \
+        + [int(v) for st in plan.stores for v in st] + list(plan.steps)
+    base = HEADER + len(ps) + len(table)
+    body: list[int] = []
+    offsets = []
+    for p in ps:
+        offsets.append(base + len(body))
+        starts = np.cumsum([0] + [len(r) for r in p.rounds]).tolist()
+        body += [len(p.rounds), *starts]
+        for r in p.rounds:
+            body += r.ravel().tolist()
+    out = np.array(head + offsets + table + body, np.int64)
+    if out.max() > np.iinfo(np.int16).max:
+        raise ValueError("plan too large for int16 offsets")
+    return out.astype(np.int16)
+
+
+_PACKED: dict[str, np.ndarray] = {}
+_DEVICE_CACHE: dict[tuple, torch.Tensor] = {}
+
+
+def _packed(plan: Plan) -> np.ndarray:
+    if plan.name not in _PACKED:
+        _PACKED[plan.name] = pack(plan)
+    return _PACKED[plan.name]
+
+
+def to_device(plan: Plan, device) -> torch.Tensor:
+    """``pack(plan)`` as an int16 tensor on ``device``, made once per plan
+    and device."""
+    key = (plan.name, str(torch.device(device)))
+    if key not in _DEVICE_CACHE:
+        _DEVICE_CACHE[key] = torch.from_numpy(_packed(plan)).to(device)
+    return _DEVICE_CACHE[key]
+
+
+def shared_bytes(plan: Plan) -> int:
+    """Dynamic shared memory of one block, which the wrapper hands to the
+    launch: the slots (12 words each), then the packed plan, 16-byte
+    aligned."""
+    return plan.n_slots * field.N_LIMBS + (2 * len(_packed(plan)) + 15) // 16 * 16

@@ -5,7 +5,9 @@ Counterpart of ``lighthouse_tpu/ops/tkernel_calls.py``, whose Pallas kernels
 each run one long sequential chain of the verify (affine normalisation,
 RLC scalar multiplication, subgroup check, Miller loop, final
 exponentiation) as one program. Here each is a CUDA kernel under
-``lighthouse_tpu_torch/csrc/`` that runs the chain one lane per thread.
+``lighthouse_tpu_torch/csrc/`` that runs the chain one lane per thread, or,
+for K8 and K10, one lane per block: the block runs the straight-line
+programs of ``ops/coop.py``, which the wrapper hands it.
 
 Every wrapper takes the port's batch-major tensors, with one leading lane
 axis: Fp ``int32[n, 48]``, Fp2 ``[n, 2, 48]``, Fp12 ``[n, 2, 3, 2, 48]``,
@@ -29,7 +31,7 @@ import ctypes
 
 import torch
 
-from . import _build, points
+from . import _build, coop, points
 from .pairing import _cyc_pow_x, _cyc_pow_x_minus_1, easy_part
 from .points import FP2_OPS, FP_OPS
 from .tkernel_pairing import miller_loop_seg
@@ -229,8 +231,11 @@ def miller_loop(p_aff, p_inf, q_aff, q_inf):
         (q_aff[0], torch.int32, _FP2), (q_aff[1], torch.int32, _FP2),
         (q_inf, torch.bool, ()),
     ])
+    plan = coop.miller_plan()
+    prog = coop.to_device(plan, xp.device)
     out = _empty(n, _FP12, xp)
-    _launch(K8, (xp, yp, pinf, xq, yq, qinf, out), (), n)
+    _launch(K8, (xp, yp, pinf, xq, yq, qinf, prog, out),
+            (coop.shared_bytes(plan), prog.numel()), n)
     return out
 
 
@@ -277,7 +282,12 @@ def pow_x(f, xm1: bool):
     """Kernel K10 (plain: :func:`pow_x_plain`)."""
     if _on_cpu(f):
         return pow_x_plain(f, xm1)
-    return _fp12_call(K10, (f,), (int(bool(xm1)),))
+    (f,), n = _checked(K10, [(f, torch.int32, _FP12)])
+    plan = coop.pow_x_plan(bool(xm1))
+    prog = coop.to_device(plan, f.device)
+    out = _empty(n, _FP12, f)
+    _launch(K10, (f, prog, out), (coop.shared_bytes(plan), prog.numel()), n)
+    return out
 
 
 def comb(u, v, mode: str):

@@ -37,6 +37,7 @@ def test_scan_covers_the_port():
     assert os.path.join("lighthouse_tpu_torch", "ops", "htc.py") in names
     assert os.path.join("lighthouse_tpu_torch", "ops", "tkernel_htc.py") in names
     assert os.path.join("lighthouse_tpu_torch", "ops", "msm.py") in names
+    assert os.path.join("lighthouse_tpu_torch", "ops", "coop.py") in names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

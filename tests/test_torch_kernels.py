@@ -24,7 +24,7 @@ from lighthouse_tpu_torch.crypto.bls.constants import R as ORDER
 from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator, g2_infinity
 from lighthouse_tpu_torch.crypto.bls.fields import Fq2
 from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2, map_to_curve_g2
-from lighthouse_tpu_torch.ops import field, htc, mont_mul, msm, pairing, points
+from lighthouse_tpu_torch.ops import field, htc, mont_mul, msm, pairing, points, tower
 from lighthouse_tpu_torch.ops import tkernel_calls as tc
 from lighthouse_tpu_torch.ops import tkernel_htc as th
 
@@ -179,6 +179,55 @@ def test_miller_and_final_exp_kernels_match_plain():
     for mode in tc.COMB_MODES:
         assert _same(tc.comb(f, g, mode), tc.comb_plain(f, g, mode))
     assert _same(tc.final_exp_kernel(f[:1]), pairing.final_exponentiation(f[:1]))
+
+
+def _miller_inputs(n):
+    """n (P, Q) lanes on the card: P = [k + 2]G1, Q = [k + 5]G2."""
+    g1, g2 = g1_generator(), g2_generator()
+    px, py, pinf = _cuda(*points.g1_to_dev([g1.mul(k + 2) for k in range(n)]))
+    qx, qy, qinf = _cuda(*points.g2_to_dev([g2.mul(k + 5) for k in range(n)]))
+    return (px, py), pinf, (qx, qy), qinf
+
+
+@pytest.mark.cuda
+def test_miller_kernel_matches_plain_at_path_width():
+    """K8, one block per lane, at the verify's 129 lanes: raw limbs, with
+    P, Q and both at infinity on three lanes (Fp12 one there)."""
+    _card()
+    p, pinf, q, qinf = _miller_inputs(129)
+    pinf[3] = qinf[125] = True
+    pinf[64] = qinf[64] = True
+    before = tc.K8.launches
+    f = tc.miller_loop(p, pinf, q, qinf)
+    assert tc.K8.launches == before + 1
+    assert _same(f, tc.miller_loop_seg(p, pinf, q, qinf))
+    one = torch.from_numpy(tower.FP12_ONE).cuda()
+    assert all(torch.equal(f[i], one) for i in (3, 64, 125))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 33])
+def test_pow_x_kernel_matches_plain_on_cyclotomic_lanes(n):
+    """K10, one block per lane, on K9's outputs (cyclotomic), x and xm1."""
+    _card()
+    g = tc.easy_exp(tc.miller_loop(*_miller_inputs(n)))
+    for xm1 in (False, True):
+        before = tc.K10.launches
+        got = tc.pow_x(g, xm1)
+        assert tc.K10.launches == before + 1
+        assert _same(got, tc.pow_x_plain(g, xm1))
+
+
+@pytest.mark.cuda
+def test_final_exp_chain_matches_final_exponentiation():
+    """The 9-launch chain (K9, K10 five times, K11 three times) on two lanes
+    against the classic final exponentiation, raw limbs."""
+    _card()
+    f = tc.miller_loop(*_miller_inputs(2))
+    before = tc.K10.launches
+    got = tc.final_exp_kernel(f)
+    assert tc.K10.launches == before + 5
+    assert _same(got, pairing.final_exponentiation(f))
 
 
 @pytest.mark.cuda
