@@ -8,7 +8,9 @@ In order, and failing (nonzero exit, no result line) at the first fault:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: every registered kernel from the sources in this checkout, one
    nvcc per source, all started together; the seconds of each build and
-   each kernel's registers, spills and stack from ``ptxas -v``;
+   each kernel's registers, spills and stack from ``ptxas -v``; then the
+   cycles of one Fp product (and sum) in one thread, from the probe
+   ``csrc/fp_probe.cu`` (no path runs it);
 3. K1 against its plain PyTorch version: bit equality on 2^20 random values
    in [0, 2p) plus the edge rows, big-int agreement on a sample, timings
    (CUDA events, median of repetitions);
@@ -29,12 +31,14 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    empty bucket) and with every set skipped; the MSM point against the scan
    (K3 G2 and the S-leaf tree) and the oracle's sum r_i S_i at canonical
    affine; kernel-only times of the MSM against the scan at S=2048;
-6. the hash kernels (K12 resident map, K13 SSWU + isogeny, K14 cofactor)
-   against their plain versions at the shapes the batch's 128 distinct
+6. the hash kernels (K12 resident map, K13 SSWU + isogeny, K14 cofactor;
+   one warp per message, htc.cu's ptxas lines repeated) against their
+   plain versions, raw limbs equal, at the shapes the batch's 128 distinct
    messages give them and on edge lanes (u = 0 on both halves, u0 == u1,
-   a lane at infinity, the RFC 9380 J.10.1 messages), both SSWU branches
-   among the lanes; K12 + K2 against the RFC vectors; the device hash,
-   resident and chained, against the oracle's points of all 128 messages;
+   a lane at infinity, the RFC 9380 J.10.1 messages, an odd count of u),
+   both SSWU branches among the lanes; their rounds per lane and the time
+   per round; K12 + K2 against the RFC vectors; the device hash, resident
+   and chained, against the oracle's points of all 128 messages;
 7. the main path, the card's default, through the user entry point
    ``TorchBackend().verify_signature_sets`` at a mainnet block's size:
    S=128 aggregate attestations of K=512 keys, fused verify with the device
@@ -46,7 +50,10 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    valid and swapped batches;
 9. two small batches through every configuration, the chained hash
    (``htc_resident=False``) among them, against the pure-Python oracle;
-10. the ``kernels`` JSON line, the nvidia-smi line, and the result line.
+10. K1 at every size the main path launched it with (bit equality, time)
+    and its total per verify; the device time of a default verify summed
+    from the kernels' times and launches; the ``kernels`` JSON line, the
+    nvidia-smi line, and the result line.
 
 Kernel launch counts are zeroed just before each verify and read just after
 it. Each configuration has its list: the default fused path must launch K1,
@@ -179,15 +186,54 @@ class GpuSampler:
 # ------------------------------------------------------------ phase 2: build
 
 
-def build(torch) -> None:
+def build(torch):
+    """Every registered kernel's library and the product probe's, all
+    started together; returns the probe's library."""
     from lighthouse_tpu_torch.ops import _build
 
+    probe = _build.CudaLibrary("fp_probe.cu")
+    proc = probe.start_build()
     seconds = _build.build_all()
+    probe.finish_build(proc)
     log(f"built {len(seconds)} libraries for {len(_build.KERNELS)} kernels, "
         f"nvcc seconds from the common start: {json.dumps(seconds)}")
-    for lib in {id(k.library): k.library for k in _build.KERNELS}.values():
+    for lib in [*{id(k.library): k.library for k in _build.KERNELS}.values(), probe]:
         for line in ptxas_summary(lib.build_log):
             log(f"ptxas {lib.source.name}: {line}")
+    return probe
+
+
+def probe_product(torch, np, probe, iters: int = 4096) -> None:
+    """Cycles (clock64) per fp_mul in one thread's loop of dependent calls
+    (csrc/fp_probe.cu): one chain per thread, two independent chains per
+    thread, and with 4 or 8 warps in the block (one or two per SM
+    sub-partition); and per fp_add. Two chains at twice the cycles of one
+    mean that the warp's instruction issue, not the chain's latency, sets a
+    product's time."""
+    import ctypes
+
+    fn = probe.load().lh_fp_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    limbs = random_fp(np, np.random.default_rng(5), 2).astype(np.int64)
+    words = limbs[:, 0::4] | limbs[:, 1::4] << 8 | limbs[:, 2::4] << 16 | limbs[:, 3::4] << 24
+    inp = torch.from_numpy(words.reshape(-1).astype(np.uint32).view(np.int32)).cuda()
+    out = torch.empty(256 * 12, dtype=torch.int32, device="cuda")
+    cyc = torch.empty(1, dtype=torch.int64, device="cuda")
+    res = {}
+    for label, mode, threads in (("fp_mul, 1 warp", 0, 32),
+                                 ("fp_mul x2 independent, 1 warp", 1, 32),
+                                 ("fp_mul, 4 warps", 0, 128),
+                                 ("fp_mul, 8 warps", 0, 256),
+                                 ("fp_add, 1 warp", 2, 32)):
+        for _ in range(2):  # the second run is kept
+            rc = fn(inp.data_ptr(), out.data_ptr(), cyc.data_ptr(), mode, iters,
+                    threads, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"fp_probe launch failed: CUDA error {rc}")
+            torch.cuda.synchronize()
+        res[label] = int(cyc.item()) / iters
+    log(f"product probe, clock64 cycles per call in one thread's dependent "
+        f"loop: {json.dumps(res)}")
 
 
 def ptxas_summary(text: str) -> list[str]:
@@ -276,27 +322,35 @@ def check_mont_mul(torch, np, n_values: int, reps: int) -> dict:
 
 
 def time_at_path_shape(torch, np, entry: dict, sizes, reps: int) -> None:
-    """K1 vs plain at the product count the fused path launched K1 with
-    most often (bit equality and times)."""
+    """K1 vs plain at every product count the fused path launched K1 with
+    (bit equality and times at each), and its total per verify: the sum of
+    the kernel's time at each size times its launches there, beside the
+    same sum of bounds (bytes: 576 B per product)."""
     from lighthouse_tpu_torch.ops import mont_mul
 
-    n, count = sizes.most_common(1)[0]
-    rng = np.random.default_rng(n)
-    ta = torch.from_numpy(random_fp(np, rng, n)).cuda()
-    tb = torch.from_numpy(random_fp(np, rng, n)).cuda()
-    if not torch.equal(mont_mul.mont_mul_cuda(ta, tb),
-                       mont_mul.mont_mul_plain(ta, tb)):
-        raise AssertionError(f"mont_mul kernel != plain at n={n}")
-    entry["path_n"] = n
-    entry["path_n_launches"] = count
-    entry["path_ms"] = median_ms(torch, lambda: mont_mul.mont_mul_cuda(ta, tb), reps * 10)
-    entry["path_plain_ms"] = median_ms(
-        torch, lambda: mont_mul.mont_mul_plain(ta, tb), reps * 2)
-    entry["path_bound_ms"] = 576 * n / HBM_BYTES_PER_S * 1e3
-    log(f"mont_mul at the fused path's most common size n={n} "
-        f"({count} launches): kernel {entry['path_ms']:.4f} ms, "
-        f"plain {entry['path_plain_ms']:.4f} ms; commonest sizes "
-        f"(products: launches) {dict(sizes.most_common(6))}")
+    total = total_bound = 0.0
+    for n, count in sorted(sizes.items()):
+        rng = np.random.default_rng(n)
+        ta = torch.from_numpy(random_fp(np, rng, n)).cuda()
+        tb = torch.from_numpy(random_fp(np, rng, n)).cuda()
+        if not torch.equal(mont_mul.mont_mul_cuda(ta, tb),
+                           mont_mul.mont_mul_plain(ta, tb)):
+            raise AssertionError(f"mont_mul kernel != plain at n={n}")
+        ms = median_ms(torch, lambda: mont_mul.mont_mul_cuda(ta, tb), reps)
+        total += count * ms
+        total_bound += count * 576 * n / HBM_BYTES_PER_S * 1e3
+        if (n, count) == sizes.most_common(1)[0]:
+            entry["path_n"], entry["path_n_launches"], entry["path_ms"] = n, count, ms
+            entry["path_plain_ms"] = median_ms(
+                torch, lambda: mont_mul.mont_mul_plain(ta, tb), reps)
+            entry["path_bound_ms"] = 576 * n / HBM_BYTES_PER_S * 1e3
+    entry["path_total_ms"], entry["path_total_bound_ms"] = total, total_bound
+    log(f"mont_mul at the fused path's most common size n={entry['path_n']} "
+        f"({entry['path_n_launches']} launches): kernel {entry['path_ms']:.4f} ms, "
+        f"plain {entry['path_plain_ms']:.4f} ms; over all {sum(sizes.values())} "
+        f"launches at {len(sizes)} sizes, bit-equal at each: {total:.4f} ms per "
+        f"verify (bound {total_bound:.4f} ms); sizes (products: launches) "
+        f"{dict(sorted(sizes.items()))}")
 
 
 # ------------------------------------------------------ the batch of sets
@@ -431,6 +485,31 @@ def sswu_products(c: dict, work) -> int:
     is_sq, checks = work
     return (c["sswu_fixed"] + c["sqrt_fixed"] + c["pow_e"] + checks * c["cand_check"]
             + (0 if is_sq else c["z_setup"] + c["non_square"]) + c["sgn0"] + c["iso"])
+
+
+# Rounds of the warp bodies (csrc/htc.cuh): per u-half, SSWU's 7 rounds,
+# sqrt_ratio's 6 before the power, the power's 757 squarings and 365
+# products, t, the isogeny's 13 and sgn0(y)'s 1; 3 per candidate check, 1
+# to set up the Z candidates, 2 for the non-square leg. The cofactor: 4 per
+# doubling, 6 per complete addition, 1 per psi: two walks of 63 doublings
+# and 5 additions, 5 more additions, a doubling, 3 psi. Q0 + Q1: 6.
+SSWU_FIXED_ROUNDS = 7 + 6 + 757 + 365 + 1 + 13 + 1
+COFACTOR_ROUNDS = 2 * (63 * 4 + 5 * 6) + 5 * 6 + 4 + 3
+ADD_ROUNDS = 6
+
+
+def sswu_rounds(work) -> int:
+    """Rounds of one u-half's SSWU + isogeny body."""
+    is_sq, checks = work
+    return SSWU_FIXED_ROUNDS + 3 * checks + (checks > 4) + 2 * (not is_sq)
+
+
+def map_rounds(row) -> int:
+    """Rounds of one K12 message: the halves' shared rounds once, each
+    half's data-dependent rounds (candidates, non-square leg) in turn, as a
+    warp runs legs its halves disagree on; then Q0 + Q1 and the cofactor."""
+    return (SSWU_FIXED_ROUNDS + sum(sswu_rounds(w) - SSWU_FIXED_ROUNDS for w in row)
+            + ADD_ROUNDS + COFACTOR_ROUNDS)
 
 
 def scalar_mul_products(np, c: dict, g: str, inf, bits) -> int:
@@ -912,39 +991,57 @@ def check_hash_kernels(torch, np, sets, hashes) -> dict:
     k13_products = sum(sswu_products(c, w) for row in work for w in row)
     out = {}
 
+    for line in ptxas_summary(th.K12.library.build_log):
+        log(f"ptxas htc.cu: {line}")
     out[th.K12.name] = check_kernel(
         torch, th.K12, f"K12 map_to_g2 {n} lanes",
         lambda: th.map_to_g2_resident(us), lambda: th.map_to_g2_resident_plain(us),
-        k13_products + n * (c["add_g2"] + c["cofactor"]), n * (768 + 3 * 384))
+        k13_products + n * (c["add_g2"] + c["cofactor"]), n * (768 + 3 * 384),
+        raw_only=True)
     flat = torch.cat([us[:, 0], us[:, 1]])
     out[th.K13.name] = check_kernel(
         torch, th.K13, f"K13 sswu_iso {2 * n} lanes",
         lambda: th.sswu_iso(flat), lambda: th.sswu_iso_plain(flat),
-        k13_products, 2 * n * (384 + 3 * 384))
+        k13_products, 2 * n * (384 + 3 * 384), raw_only=True)
     J = th.sswu_iso_plain(flat)
     Q = points.pt_add(points.FP2_OPS, tuple(t[:n] for t in J), tuple(t[n:] for t in J))
     out[th.K14.name] = check_kernel(
         torch, th.K14, f"K14 cofactor {n} lanes",
         lambda: th.clear_cofactor(Q), lambda: th.cofactor_plain(Q),
-        n * c["cofactor"], n * 2 * 3 * 384)
+        n * c["cofactor"], n * 2 * 3 * 384, raw_only=True)
+    k12_rounds = max(map_rounds(row) for row in work)
+    k13_rounds = max(sswu_rounds(w) for row in work for w in row)
+    log(f"K12: one warp per message, {th.WARPS_PER_BLOCK} warp per block, "
+        f"{th.THREADS_PER_MESSAGE} threads per message (a half-warp of "
+        f"{th.THREADS_PER_MESSAGE // 2} per u-half until Q0 + Q1, then the warp); "
+        f"K13 a half-warp per u (two per block), K14 a warp per point. Rounds "
+        f"of the slowest lane: K12 {k12_rounds} ({out[th.K12.name]['ms'] * 1e3 / k12_rounds:.4f} "
+        f"us per round), K13 {k13_rounds} "
+        f"({out[th.K13.name]['ms'] * 1e3 / k13_rounds:.4f} us), K14 {COFACTOR_ROUNDS} "
+        f"({out[th.K14.name]['ms'] * 1e3 / COFACTOR_ROUNDS:.4f} us); one thread "
+        f"ran up to {max(sum(sswu_products(c, w) for w in row) for row in work) + c['add_g2'] + c['cofactor']} "
+        f"Fp products in a row per message before")
 
     # edge lanes: each kernel against its plain version, not timed
     edge = hash_edge_inputs(torch, np, msgs)
     m = edge.shape[0]
     check_kernel(torch, th.K12, f"K12 map_to_g2 {m} edge lanes",
                  lambda: th.map_to_g2_resident(edge),
-                 lambda: th.map_to_g2_resident_plain(edge), 0, 0, time_it=False)
-    eflat = torch.cat([edge[:, 0], edge[:, 1]])
-    check_kernel(torch, th.K13, f"K13 sswu_iso {2 * m} edge lanes",
+                 lambda: th.map_to_g2_resident_plain(edge), 0, 0, time_it=False,
+                 raw_only=True)
+    # an odd count leaves the last block's second half-warp without a u
+    eflat = torch.cat([edge[:, 0], edge[:, 1]])[:-1]
+    check_kernel(torch, th.K13, f"K13 sswu_iso {2 * m - 1} edge lanes",
                  lambda: th.sswu_iso(eflat), lambda: th.sswu_iso_plain(eflat),
-                 0, 0, time_it=False)
-    EJ = th.sswu_iso_plain(eflat)
+                 0, 0, time_it=False, raw_only=True)
+    EJ = th.sswu_iso_plain(torch.cat([edge[:, 0], edge[:, 1]]))
     EQ = tuple(t.clone() for t in points.pt_add(
         points.FP2_OPS, tuple(t[:m] for t in EJ), tuple(t[m:] for t in EJ)))
     EQ[2][2] = 0  # a lane at infinity
     check_kernel(torch, th.K14, f"K14 cofactor {m} edge lanes",
                  lambda: th.clear_cofactor(EQ), lambda: th.cofactor_plain(EQ),
-                 0, 0, time_it=False)
+                 0, 0, time_it=False,
+                 raw_only=True)
 
     # the RFC vectors through K12 and K2
     x, y, inf = tc.to_affine_g2(th.map_to_g2_resident(edge[2:]))
@@ -1080,7 +1177,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; "
         f"nvidia-smi: {smi}")
-    build(torch)
+    probe_product(torch, np, build(torch))
 
     k1 = check_mont_mul(torch, np, N_VALUES, REPS)
 
@@ -1175,6 +1272,15 @@ def main() -> int:
         ops_ms = e.pop("fp_products") * MADS_PER_FP_PRODUCT / int_rate * 1e3
         e["bound_ms"] = max(bytes_ms, ops_ms)
         e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    # the device time of one default verify, estimated: K1 at each of its
+    # sizes, every other kernel at the shape it was timed at, times its
+    # launches on the main path
+    main_launches = fused_runs["valid"]["launches"]
+    device_ms = k1["path_total_ms"] + sum(
+        e["ms"] * main_launches[e["name"]] for e in entries[1:])
+    log(f"device time per default verify ~{device_ms:.3f} ms (K1 "
+        f"{k1['path_total_ms']:.4f} ms over its sizes; the others at their "
+        f"timed shapes x their launches on the main path)")
     log(f"MSM against the scan at S={wide['S']}: MSM {wide['msm_ms']:.4f} ms "
         f"(K5 {wide['k5_ms']:.4f}, K6 {wide['k6_ms']:.4f}, K7 {wide['k7_ms']:.4f}), "
         f"scan {wide['scan_ms']:.4f} ms (K3 G2 {wide['k3_g2_ms']:.4f})")

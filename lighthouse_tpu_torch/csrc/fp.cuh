@@ -70,72 +70,241 @@ __device__ __forceinline__ void fp_store(int4* __restrict__ dst,
   }
 }
 
-// r = a * b * 2^-384 mod-ish p: word-level CIOS with 64-bit products and
-// NO final conditional subtraction. For a, b in [0, 2p) the result
+// ------------------------------------------------------ carry chains
+// The PTX carry flag threads one chain of add.cc / addc / mad*.cc words; a
+// chain's instructions stay in program order (asm volatile) and no other
+// chain runs between them. The Carry argument names the chain: it is empty
+// work on the card, and a host compiler (which sees the portable branch)
+// keeps the flag in it, so the word arithmetic can be checked off the card.
+
+struct Carry {
+  uint32_t c = 0u;
+};
+
+#if defined(__CUDA_ARCH__)
+#define LH_ASM(...) asm volatile(__VA_ARGS__)
+__device__ __forceinline__ uint32_t add_cc(Carry&, uint32_t a, uint32_t b) {
+  uint32_t r;
+  LH_ASM("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(Carry&, uint32_t a, uint32_t b) {
+  uint32_t r;
+  LH_ASM("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(Carry&, uint32_t a, uint32_t b) {
+  uint32_t r;
+  LH_ASM("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(Carry&, uint32_t a, uint32_t b) {
+  uint32_t r;
+  LH_ASM("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(Carry&, uint32_t a, uint32_t b) {
+  uint32_t r;
+  LH_ASM("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(Carry&, uint32_t a, uint32_t b) {
+  uint32_t r;
+  LH_ASM("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// lo / hi word of a * b, plus c (and the flag, for madc), setting the flag.
+__device__ __forceinline__ uint32_t mad_lo_cc(Carry&, uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  uint32_t r;
+  LH_ASM("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(Carry&, uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t r;
+  LH_ASM("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(Carry&, uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t r;
+  LH_ASM("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi(Carry&, uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t r;
+  LH_ASM("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+#undef LH_ASM
+__device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return __umulhi(a, b);
+}
+#else
+__device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+__device__ __forceinline__ uint32_t add_w(Carry& k, uint64_t s) {
+  k.c = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+__device__ __forceinline__ uint32_t sub_w(Carry& k, uint64_t d) {
+  k.c = (uint32_t)(d >> 63);
+  return (uint32_t)d;
+}
+__device__ __forceinline__ uint32_t add_cc(Carry& k, uint32_t a, uint32_t b) {
+  return add_w(k, (uint64_t)a + b);
+}
+__device__ __forceinline__ uint32_t addc_cc(Carry& k, uint32_t a, uint32_t b) {
+  return add_w(k, (uint64_t)a + b + k.c);
+}
+__device__ __forceinline__ uint32_t addc(Carry& k, uint32_t a, uint32_t b) {
+  return a + b + k.c;
+}
+__device__ __forceinline__ uint32_t sub_cc(Carry& k, uint32_t a, uint32_t b) {
+  return sub_w(k, (uint64_t)a - b);
+}
+__device__ __forceinline__ uint32_t subc_cc(Carry& k, uint32_t a, uint32_t b) {
+  return sub_w(k, (uint64_t)a - b - k.c);
+}
+__device__ __forceinline__ uint32_t subc(Carry& k, uint32_t a, uint32_t b) {
+  return a - b - k.c;
+}
+__device__ __forceinline__ uint32_t mad_lo_cc(Carry& k, uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  return add_w(k, (uint64_t)(a * b) + c);
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(Carry& k, uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  return add_w(k, (uint64_t)(a * b) + c + k.c);
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(Carry& k, uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  return add_w(k, (((uint64_t)a * b) >> 32) + c + k.c);
+}
+__device__ __forceinline__ uint32_t madc_hi(Carry& k, uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  return (uint32_t)((((uint64_t)a * b) >> 32) + c + k.c);
+}
+#endif
+
+// The word products of a Montgomery product, even and odd word apart. Each
+// helper reads every other word of `a` (a or a + 1): the products of those
+// words by one word b are 64-bit pairs that do not overlap, so a 12-word
+// accumulator takes them in one carry chain.
+
+// r = a[0, 2, .., 10] * b as six 64-bit pairs.
+__device__ __forceinline__ void mul_n(uint32_t r[kWords], const uint32_t* a,
+                                      uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < kWords; j += 2) {
+    r[j] = a[j] * b;
+    r[j + 1] = mul_hi(a[j], b);
+  }
+}
+
+// acc += a[0, 2, .., 10] * b; the chain's carry out of acc[11] is left in k.
+__device__ __forceinline__ void cmad_n(Carry& k, uint32_t acc[kWords],
+                                       const uint32_t* a, uint32_t b) {
+  acc[0] = mad_lo_cc(k, a[0], b, acc[0]);
+  acc[1] = madc_hi_cc(k, a[0], b, acc[1]);
+#pragma unroll
+  for (int j = 2; j < kWords; j += 2) {
+    acc[j] = madc_lo_cc(k, a[j], b, acc[j]);
+    acc[j + 1] = madc_hi_cc(k, a[j], b, acc[j + 1]);
+  }
+}
+
+// acc = (acc >> 64) + a[0, 2, .., 10] * b + the carry in k, which ends here.
+__device__ __forceinline__ void madc_n_rshift(Carry& k, uint32_t acc[kWords],
+                                              const uint32_t* a, uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < kWords - 2; j += 2) {
+    acc[j] = madc_lo_cc(k, a[j], b, acc[j + 2]);
+    acc[j + 1] = madc_hi_cc(k, a[j], b, acc[j + 3]);
+  }
+  acc[kWords - 2] = madc_lo_cc(k, a[kWords - 2], b, 0u);
+  acc[kWords - 1] = madc_hi(k, a[kWords - 2], b, 0u);
+}
+
+// One CIOS step, T = (T + a * b + m * p) / 2^32 with m = T * -1/p mod 2^32,
+// on the running sum T = lo + hi * 2^32: lo holds the words at positions
+// 0..11, hi those at 1..12. The previous step's lo (whose word 0 the
+// reduction made 0) comes in as hi and its hi as lo: dividing by 2^32 moves
+// hi's word 1 to position 0 and the rest of hi down two words into the odd
+// positions. `first` starts T at a * b.
+__device__ __forceinline__ void mad_redc(uint32_t lo[kWords],
+                                         uint32_t hi[kWords],
+                                         const uint32_t a[kWords], uint32_t b,
+                                         bool first) {
+  Carry k;
+  if (first) {
+    mul_n(hi, a + 1, b);
+    mul_n(lo, a, b);
+  } else {
+    // lo[0] + hi[1] (hi's word 1 moves to position 0), its carry into the
+    // shift of hi down two words, which takes a's odd products
+    lo[0] = add_cc(k, lo[0], hi[1]);
+    madc_n_rshift(k, hi, a + 1, b);
+    cmad_n(k, lo, a, b);
+    hi[kWords - 1] = addc(k, hi[kWords - 1], 0u);
+  }
+  const uint32_t m = lo[0] * kNInv;
+  cmad_n(k, hi, kP + 1, m);  // hi < 2^384 throughout: no carry out
+  cmad_n(k, lo, kP, m);
+  hi[kWords - 1] = addc(k, hi[kWords - 1], 0u);
+}
+
+// r = a * b * 2^-384 mod-ish p: word-level CIOS on PTX carry chains and NO
+// final conditional subtraction. For a, b in [0, 2p) the result
 // (a*b + m*p) / 2^384 lies in [0, 2p). The quotient m is the unique value
 // in [0, 2^384) with a*b + m*p = 0 mod 2^384 whether it is built from
 // 32-bit words (here) or 8-bit digits (the reference), so the output is
 // the same integer as lighthouse_tpu.ops.limb.mont_mul, limb for limb.
+//
+// The running sum is kept as two accumulators, the even-aligned and the
+// odd-aligned words of every row (sppark's mont_t layout), so the two
+// chains of a step have no carry between them. Since p < 2^381, every
+// running sum stays below a + p < 2^383 after a step and below 2^415
+// before its division, so 12 words of each accumulator hold it and no
+// chain carries out of its top word except where the code says.
 __device__ __forceinline__ void fp_mul(uint32_t r[kWords],
                                        const uint32_t a[kWords],
                                        const uint32_t b[kWords]) {
-  uint32_t t[kWords + 2];
+  uint32_t even[kWords], odd[kWords];
 #pragma unroll
-  for (int j = 0; j < kWords + 2; ++j) t[j] = 0u;
-
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    // t += a * b[i]
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      const uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[kWords] + c;
-    t[kWords] = (uint32_t)s;
-    t[kWords + 1] = (uint32_t)(s >> 32);
-
-    // t = (t + m * p) / 2^32 with m chosen so the low word vanishes
-    const uint32_t m = t[0] * kNInv;
-    c = ((uint64_t)m * kP[0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < kWords; ++j) {
-      s = (uint64_t)m * kP[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[kWords] + c;
-    t[kWords - 1] = (uint32_t)s;
-    t[kWords] = t[kWords + 1] + (uint32_t)(s >> 32);
+  for (int i = 0; i < kWords; i += 2) {
+    mad_redc(even, odd, a, b[i], i == 0);
+    mad_redc(odd, even, a, b[i + 1], false);
   }
+  // odd holds the even-aligned words after the last step, whose word 0 is
+  // 0: r = (odd >> 32) + even
+  Carry k;
+  r[0] = add_cc(k, even[0], odd[1]);
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) r[j] = t[j];
+  for (int j = 1; j < kWords - 1; ++j) r[j] = addc_cc(k, even[j], odd[j + 1]);
+  r[kWords - 1] = addc(k, even[kWords - 1], 0u);
 }
 
 // r = a + b, minus 2p when the sum reaches 2p: the reference's lazy add
-// (lighthouse_tpu/ops/limb.py add). Inputs and output in [0, 2p).
+// (lighthouse_tpu/ops/limb.py add). Inputs and output in [0, 2p), so the
+// sum fits in 12 words.
 __device__ __forceinline__ void fp_add(uint32_t r[kWords],
                                        const uint32_t a[kWords],
                                        const uint32_t b[kWords]) {
   uint32_t s[kWords], d[kWords];
-  uint64_t c = 0;
+  Carry k;
+  s[0] = add_cc(k, a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    c += (uint64_t)a[j] + b[j];
-    s[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  uint64_t br = 0;
+  for (int j = 1; j < kWords; ++j) s[j] = addc_cc(k, a[j], b[j]);
+  d[0] = sub_cc(k, s[0], kTwoP[0]);
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    const uint64_t x = (uint64_t)s[j] - kTwoP[j] - br;
-    d[j] = (uint32_t)x;
-    br = x >> 63;
-  }
+  for (int j = 1; j < kWords; ++j) d[j] = subc_cc(k, s[j], kTwoP[j]);
+  const uint32_t below = subc(k, 0u, 0u);  // all ones when s < 2p
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) r[j] = br ? s[j] : d[j];
+  for (int j = 0; j < kWords; ++j) r[j] = below ? s[j] : d[j];
 }
 
 // r = a - b, plus 2p when a < b: the reference's lazy sub
@@ -144,21 +313,15 @@ __device__ __forceinline__ void fp_sub(uint32_t r[kWords],
                                        const uint32_t a[kWords],
                                        const uint32_t b[kWords]) {
   uint32_t d[kWords];
-  uint64_t br = 0;
+  Carry k;
+  d[0] = sub_cc(k, a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    const uint64_t x = (uint64_t)a[j] - b[j] - br;
-    d[j] = (uint32_t)x;
-    br = x >> 63;
-  }
-  const uint32_t mask = br ? 0xffffffffu : 0u;
-  uint64_t c = 0;
+  for (int j = 1; j < kWords; ++j) d[j] = subc_cc(k, a[j], b[j]);
+  const uint32_t mask = subc(k, 0u, 0u);  // all ones when a < b
+  r[0] = add_cc(k, d[0], kTwoP[0] & mask);
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    c += (uint64_t)d[j] + (kTwoP[j] & mask);
-    r[j] = (uint32_t)c;
-    c >>= 32;
-  }
+  for (int j = 1; j < kWords - 1; ++j) r[j] = addc_cc(k, d[j], kTwoP[j] & mask);
+  r[kWords - 1] = addc(k, d[kWords - 1], kTwoP[kWords - 1] & mask);
 }
 
 // r = -a, closed on [0, 2p): 0 -> 0, else 2p - a (ops/field.py neg, which

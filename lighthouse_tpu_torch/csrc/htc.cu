@@ -10,18 +10,32 @@
 // Each computes what its plain version in ops/tkernel_htc.py computes,
 // limb for limb (map_to_g2_resident_plain, sswu_iso_plain, cofactor_plain).
 //
-// What bounds them on an H100: integer multiplies. A K12 lane is a
-// dependent chain of ~8,400 Fp products (two 757-step sqrt_ratio powers,
-// ~2,800 each with the SSWU and isogeny glue, and ~2,700 for the cofactor's
-// 126 doublings and 15 complete additions) against 768 B read and 1,152 B
-// written; a K13 lane ~2,800, a K14 lane ~2,700.
+// What bounds them on an H100: a lane is a chain of dependent Fp products
+// (K12 ~8,400: two 757-step sqrt_ratio powers, ~2,800 each with the SSWU
+// and isogeny glue, and ~2,700 for the cofactor's 126 doublings and 15
+// complete additions) against 768 B read and 1,152 B written; a K13 lane
+// ~2,800, a K14 lane ~2,700. The batch is small (128 messages on the verify
+// path), so the card's multipliers are far from busy: a lane's time is its
+// rounds, each one Fp product issued by one warp (issue-bound, not
+// latency-bound: chip_smoke.py's product probe) plus the additions that
+// every thread of the warp runs.
 //
-// What the design does about it: one thread per lane (one message for K12,
-// one u for K13, one point for K14), the chain in registers and local
-// memory; the 758-bit exponent is a loop over a __constant__ table, and
-// every Fp2 product and point operation is one out-of-line copy, which
-// keeps the build to seconds. At the verify path's 128 messages K12 fills 4
-// of the 132 SMs with one warp each: the chain's latency is the cost.
+// What the design does about it: one warp per lane, one lane per block of
+// one warp, so 128 messages take 128 SMs. The chain's independent Fp
+// products run side by side on the warp's threads in rounds (htc.cuh): in
+// K12 the two u-halves run on the two half-warps until Q0 + Q1, each Fp2
+// product's three Karatsuba products (a square's two) on three (two)
+// threads, and a point operation's independent Fp2 products together, so a
+// K12 lane is ~1,770 rounds where one thread ran ~8,400 products in a row:
+// per u-half 1,122 rounds of the power and ~30 of SSWU, sqrt_ratio's
+// candidates and the isogeny; per message ~600 rounds of the cofactor (4 per
+// doubling, 6 per addition). Every product is fp.cuh's carry-chain fp_mul.
+// The data-dependent conditions are uniform in each group and stay
+// branches. No block-wide barrier: a round ends in __syncwarp over its
+// group. K13 runs a u per half-warp (two per block), K14 a point per warp,
+// on the same bodies.
+
+#include <cuda_runtime.h>
 
 #include "htc.cuh"
 #include "lanes.cuh"
@@ -30,7 +44,8 @@ namespace {
 
 using namespace bls;
 
-constexpr int W = 2 * kWords;  // int4 per Fp2 value
+constexpr int W = 2 * kWords;                     // int4 per Fp2 value
+constexpr int kSlots = kWarpThreads * kSlotVecs;  // uint4 of a warp's slots
 
 __device__ __forceinline__ void store_jac(int4* __restrict__ X,
                                           int4* __restrict__ Y,
@@ -41,40 +56,64 @@ __device__ __forceinline__ void store_jac(int4* __restrict__ X,
   store(Z + i * W, P.Z);
 }
 
-__global__ void __launch_bounds__(kLaneThreads)
-    map_to_g2_kernel(const int4* __restrict__ us, int4* __restrict__ X,
-                     int4* __restrict__ Y, int4* __restrict__ Z,
-                     long long n) {
-  const long long i = lane_index();
-  if (i >= n) return;
-  Fp2 u0, u1;
-  load(u0, us + i * 2 * W);
-  load(u1, us + i * 2 * W + W);
-  store_jac(X, Y, Z, i, clear_cofactor(pt_add(sswu_iso(u0), sswu_iso(u1))));
+// This thread's half-warp (threads 0-15, 16-31) and the whole warp.
+__device__ __forceinline__ int half_index() {
+  return threadIdx.x / kHalfThreads;
+}
+__device__ __forceinline__ Group<kHalfThreads> half_group(uint4* slots) {
+  const int h = half_index();
+  return {(int)(threadIdx.x % kHalfThreads), 0xffffu << (kHalfThreads * h),
+          slots + h * kHalfThreads * kSlotVecs};
+}
+__device__ __forceinline__ Group<kWarpThreads> warp_group(uint4* slots) {
+  return {(int)threadIdx.x, 0xffffffffu, slots};
 }
 
-__global__ void __launch_bounds__(kLaneThreads)
+// One message per block: u-half h on half-warp h, then Q0 + Q1 and the
+// cofactor on the warp.
+__global__ void __launch_bounds__(kWarpThreads)
+    map_to_g2_kernel(const int4* __restrict__ us, int4* __restrict__ X,
+                     int4* __restrict__ Y, int4* __restrict__ Z) {
+  __shared__ uint4 slots[kSlots];
+  __shared__ Jac<Fp2> halves[2];
+  const long long i = blockIdx.x;
+  const int h = half_index();
+  Fp2 u;
+  load(u, us + (i * 2 + h) * W);
+  const Jac<Fp2> Q = sswu_iso(half_group(slots), u);
+  if (threadIdx.x % kHalfThreads == 0) halves[h] = Q;
+  __syncwarp();
+  const Group<kWarpThreads> G = warp_group(slots);
+  const Jac<Fp2> R = clear_cofactor(G, pt_add(G, halves[0], halves[1]));
+  if (threadIdx.x == 0) store_jac(X, Y, Z, i, R);
+}
+
+// Two u per block, one per half-warp.
+__global__ void __launch_bounds__(kWarpThreads)
     sswu_iso_kernel(const int4* __restrict__ u, int4* __restrict__ X,
                     int4* __restrict__ Y, int4* __restrict__ Z, long long n) {
-  const long long i = lane_index();
-  if (i >= n) return;
+  __shared__ uint4 slots[kSlots];
+  const long long i = (long long)blockIdx.x * 2 + half_index();
+  if (i >= n) return;  // n odd: the last block's second half-warp has no u
   Fp2 a;
   load(a, u + i * W);
-  store_jac(X, Y, Z, i, sswu_iso(a));
+  const Jac<Fp2> P = sswu_iso(half_group(slots), a);
+  if (threadIdx.x % kHalfThreads == 0) store_jac(X, Y, Z, i, P);
 }
 
-__global__ void __launch_bounds__(kLaneThreads)
+// One point per block.
+__global__ void __launch_bounds__(kWarpThreads)
     cofactor_kernel(const int4* __restrict__ X, const int4* __restrict__ Y,
                     const int4* __restrict__ Z, int4* __restrict__ oX,
-                    int4* __restrict__ oY, int4* __restrict__ oZ,
-                    long long n) {
-  const long long i = lane_index();
-  if (i >= n) return;
+                    int4* __restrict__ oY, int4* __restrict__ oZ) {
+  __shared__ uint4 slots[kSlots];
+  const long long i = blockIdx.x;
   Jac<Fp2> P;
   load(P.X, X + i * W);
   load(P.Y, Y + i * W);
   load(P.Z, Z + i * W);
-  store_jac(oX, oY, oZ, i, clear_cofactor(P));
+  const Jac<Fp2> R = clear_cofactor(warp_group(slots), P);
+  if (threadIdx.x == 0) store_jac(oX, oY, oZ, i, R);
 }
 
 }  // namespace
@@ -84,8 +123,8 @@ __global__ void __launch_bounds__(kLaneThreads)
 extern "C" int lh_map_to_g2(const void* us, void* X, void* Y, void* Z,
                             long long n, void* stream) {
   if (n <= 0) return 0;
-  map_to_g2_kernel<<<lane_blocks(n), kLaneThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)us, (int4*)X, (int4*)Y, (int4*)Z, n);
+  map_to_g2_kernel<<<(unsigned int)n, kWarpThreads, 0, (cudaStream_t)stream>>>(
+      (const int4*)us, (int4*)X, (int4*)Y, (int4*)Z);
   return (int)cudaGetLastError();
 }
 
@@ -93,8 +132,9 @@ extern "C" int lh_map_to_g2(const void* us, void* X, void* Y, void* Z,
 extern "C" int lh_sswu_iso(const void* u, void* X, void* Y, void* Z,
                            long long n, void* stream) {
   if (n <= 0) return 0;
-  sswu_iso_kernel<<<lane_blocks(n), kLaneThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)u, (int4*)X, (int4*)Y, (int4*)Z, n);
+  sswu_iso_kernel<<<(unsigned int)((n + 1) / 2), kWarpThreads, 0,
+                    (cudaStream_t)stream>>>((const int4*)u, (int4*)X, (int4*)Y,
+                                            (int4*)Z, n);
   return (int)cudaGetLastError();
 }
 
@@ -103,8 +143,8 @@ extern "C" int lh_cofactor(const void* X, const void* Y, const void* Z,
                            void* oX, void* oY, void* oZ, long long n,
                            void* stream) {
   if (n <= 0) return 0;
-  cofactor_kernel<<<lane_blocks(n), kLaneThreads, 0, (cudaStream_t)stream>>>(
+  cofactor_kernel<<<(unsigned int)n, kWarpThreads, 0, (cudaStream_t)stream>>>(
       (const int4*)X, (const int4*)Y, (const int4*)Z, (int4*)oX, (int4*)oY,
-      (int4*)oZ, n);
+      (int4*)oZ);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,29 @@
-// Hash-to-G2 bodies of kernels K12-K14 (sm_90a): the Fp2 power over the
-// sqrt_ratio exponent, sqrt_ratio, sgn0, the SSWU + 3-isogeny body and the
-// cofactor body by two |x| walks.
+// Hash-to-G2 bodies of kernels K12-K14 (sm_90a), run by a group of threads
+// of one warp: the Fp2 power over the sqrt_ratio exponent, sqrt_ratio,
+// sgn0, the SSWU + 3-isogeny body, and the cofactor body by two |x| walks
+// with its complete addition and doubling.
+//
+// A group is the 16 threads of a half-warp (one u through SSWU + isogeny)
+// or the whole warp (Q0 + Q1 and the cofactor). Every thread of a group
+// holds every value of the chain and runs its additions; the Fp products
+// that the chain can run side by side (the three Karatsuba products of an
+// Fp2 product, the two of a square, the independent products of a point
+// operation or an isogeny step) form a round, dealt out one per thread into
+// the group's slots in shared memory, and every thread reads the round's
+// results back after a __syncwarp over the group. So a condition on the
+// chain's values (sqrt_ratio's first hit, tv2 == 0, is_sq, sgn0, a point at
+// infinity, P == Q) is the same in every thread of the group and stays a
+// branch that computes only the leg it keeps; where the two halves of a
+// warp take different legs, the warp runs them one after the other. The
+// bits of the exponents are constants, the same for the whole warp.
 //
 // Each function follows its plain version op for op on the lazy [0, 2p)
-// values of fp.cuh, so a kernel's limbs equal the plain version's: the SSWU
-// + isogeny chain is that of ops/htc.py (sqrt_ratio, fp2_sgn0, sswu_fq2,
-// iso3_jacobian, psi_jacobian), the cofactor that of ops/tkernel_htc.py
-// (cofactor_plain). Where the plain version computes every leg and selects,
-// a thread computes only the leg it keeps: the same limbs, less work.
+// values of fp.cuh (a product computed once where the plain version
+// computes it twice gives the same limbs), so a kernel's limbs equal the
+// plain version's: the SSWU + isogeny chain is that of ops/htc.py
+// (sqrt_ratio, fp2_sgn0, sswu_fq2, iso3_jacobian, psi_jacobian), the
+// cofactor that of ops/tkernel_htc.py (cofactor_plain), the Fp2 products of
+// tower.cuh and the group law of curve.cuh (pt_double, pt_add).
 //
 // The constants are Montgomery-form words, [c0, c1] per Fp2 element
 // (ops/htc.py A_DEV, B_DEV, Z_DEV, C_Z_DEV, SQRT_CANDS_DEV, ISO_*); a CPU
@@ -189,165 +205,501 @@ __device__ __forceinline__ bool sqrt_ratio_e_bit(int i) {
   return (kSqrtRatioE[i >> 5] >> (i & 31)) & 1u;
 }
 
+// ------------------------------------------------------------- groups
+
+// Threads per half-warp group: one u of the SSWU + isogeny body.
+constexpr int kHalfThreads = 16;
+constexpr int kSlotVecs = kWords / 4;  // uint4 per Fp product slot
+
+// The threads that run one chain: this thread's index in the group, the
+// group's lanes of the warp, and its kSize product slots in shared memory.
+template <int kSize>
+struct Group {
+  int g;
+  unsigned mask;
+  uint4* slots;
+};
+
+__device__ __forceinline__ void store_slot(uint4* slots, int s, const Fp& v) {
+  uint4* d = slots + s * kSlotVecs;
+#pragma unroll
+  for (int k = 0; k < kSlotVecs; ++k)
+    d[k] = make_uint4(v.w[4 * k], v.w[4 * k + 1], v.w[4 * k + 2], v.w[4 * k + 3]);
+}
+
+__device__ __forceinline__ Fp load_slot(const uint4* slots, int s) {
+  const uint4* d = slots + s * kSlotVecs;
+  Fp v;
+#pragma unroll
+  for (int k = 0; k < kSlotVecs; ++k) {
+    const uint4 q = d[k];
+    v.w[4 * k] = q.x;
+    v.w[4 * k + 1] = q.y;
+    v.w[4 * k + 2] = q.z;
+    v.w[4 * k + 3] = q.w;
+  }
+  return v;
+}
+
+// Handles of a round's results: the slots of one Fp product, of an Fp2
+// product's three Karatsuba products, of an Fp2 square's two.
+struct ProdSlot { int s; };
+struct MulSlot { int s; };
+struct SqrSlot { int s; };
+
+// One round: the Fp products declared on it go, in order, to threads 0, 1,
+// ... of the group (at most kSize of them), run side by side, and land in
+// the group's slots. A round is declared, run, and read before the next
+// one runs (its first __syncwarp waits for the reads of the one before).
+template <int kSize>
+struct Round {
+  const Group<kSize>& G;
+  int n = 0;
+  Fp x, y;  // this thread's operands
+
+  __device__ __forceinline__ explicit Round(const Group<kSize>& grp) : G(grp) {}
+
+  __device__ __forceinline__ ProdSlot prod(const Fp& a, const Fp& b) {
+    if (G.g == n) {
+      x = a;
+      y = b;
+    }
+    return {n++};
+  }
+  // tower.cuh mul: t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 + b1)
+  __device__ __forceinline__ MulSlot mul(const Fp2& a, const Fp2& b) {
+    const int s = prod(a.c0, b.c0).s;
+    prod(a.c1, b.c1);
+    prod(add(a.c0, a.c1), add(b.c0, b.c1));
+    return {s};
+  }
+  // tower.cuh sqr: (a0 + a1)(a0 - a1), a0 a1
+  __device__ __forceinline__ SqrSlot sqr(const Fp2& a) {
+    const int s = prod(add(a.c0, a.c1), sub(a.c0, a.c1)).s;
+    prod(a.c0, a.c1);
+    return {s};
+  }
+
+  __device__ __forceinline__ void run() {
+    if (n > kSize) __trap();  // a round wider than its group
+    __syncwarp(G.mask);
+    if (G.g < n) store_slot(G.slots, G.g, bls::mul(x, y));
+    __syncwarp(G.mask);
+  }
+
+  __device__ __forceinline__ Fp get(ProdSlot h) const {
+    return load_slot(G.slots, h.s);
+  }
+  __device__ __forceinline__ Fp2 get(MulSlot h) const {
+    const Fp t0 = load_slot(G.slots, h.s);
+    const Fp t1 = load_slot(G.slots, h.s + 1);
+    const Fp t2 = load_slot(G.slots, h.s + 2);
+    return {sub(t0, t1), sub(sub(t2, t0), t1)};
+  }
+  __device__ __forceinline__ Fp2 get(SqrSlot h) const {
+    return {load_slot(G.slots, h.s), dbl(load_slot(G.slots, h.s + 1))};
+  }
+};
+
+// A round of one Fp2 product or square.
+template <int S>
+__device__ __forceinline__ Fp2 mul(const Group<S>& G, const Fp2& a,
+                                   const Fp2& b) {
+  Round<S> r(G);
+  const MulSlot h = r.mul(a, b);
+  r.run();
+  return r.get(h);
+}
+template <int S>
+__device__ __forceinline__ Fp2 sqr(const Group<S>& G, const Fp2& a) {
+  Round<S> r(G);
+  const SqrSlot h = r.sqr(a);
+  r.run();
+  return r.get(h);
+}
+
+// -------------------------------------------------------------- SSWU
+
 // a^E by square and multiply over E's bits below its top one, the product
 // skipped on zero bits (ops/htc.py fp2_pow_const over SQRT_RATIO_BITS): 757
-// squarings and 365 products, as a loop.
-__device__ __noinline__ Fp2 pow_sqrt_ratio_e(const Fp2& a) {
+// squaring rounds and 365 product rounds.
+template <int S>
+__device__ __forceinline__ Fp2 pow_sqrt_ratio_e(const Group<S>& G,
+                                                const Fp2& a) {
   Fp2 acc = a;
 #pragma unroll 1
   for (int i = kSqrtRatioTopBit - 1; i >= 0; --i) {
-    acc = sqr(acc);
-    if (sqrt_ratio_e_bit(i)) acc = mul(acc, a);
+    acc = sqr(G, acc);
+    if (sqrt_ratio_e_bit(i)) acc = mul(G, acc, a);
   }
   return acc;
 }
 
 // RFC 9380 F.2.1 (ops/htc.py sqrt_ratio): true and root = sqrt(u/v) when
 // u/v is a square, else false and root = sqrt(Z u/v). The first candidate
-// that hits wins; the Z candidates are tried only when no plain one hit.
-// u = 0 gives (true, 0): the first candidate, t * 1 = 0, hits.
-__device__ __noinline__ bool sqrt_ratio(Fp2& root, const Fp2& u,
-                                        const Fp2& v) {
-  const Fp2 v2 = sqr(v);
-  const Fp2 v4 = sqr(v2);
-  const Fp2 uv7 = mul(u, mul(mul(v4, v2), v));
-  const Fp2 uv15 = mul(uv7, mul(v4, v4));
-  const Fp2 t = mul(uv7, pow_sqrt_ratio_e(uv15));
-#pragma unroll 1
-  for (int i = 0; i < 4; ++i) {
-    const Fp2 cand = mul(t, fp2_const(kSqrtCands[i]));
-    if (eq(mul(sqr(cand), v), u)) {
-      root = cand;
-      return true;
-    }
+// that hits wins; the Z candidates (base t C_Z, target Z u) are tried only
+// when no plain one hit. u = 0 gives (true, 0): the first candidate,
+// t * 1 = 0, hits.
+template <int S>
+__device__ __forceinline__ bool sqrt_ratio(const Group<S>& G, Fp2& root,
+                                           const Fp2& u, const Fp2& v) {
+  const Fp2 v2 = sqr(G, v);
+  const Fp2 v4 = sqr(G, v2);
+  Fp2 v6, v8;
+  {
+    Round<S> r(G);
+    const MulSlot h6 = r.mul(v4, v2), h8 = r.mul(v4, v4);
+    r.run();
+    v6 = r.get(h6);
+    v8 = r.get(h8);
   }
-  const Fp2 zu = mul(fp2_const(kSswuZ), u);
-  const Fp2 tz = mul(t, fp2_const(kCZ));
+  const Fp2 uv7 = mul(G, u, mul(G, v6, v));
+  const Fp2 uv15 = mul(G, uv7, v8);
+  const Fp2 t = mul(G, uv7, pow_sqrt_ratio_e(G, uv15));
+  Fp2 base = t, target = u;
 #pragma unroll 1
-  for (int i = 0; i < 4; ++i) {
-    const Fp2 cand = mul(tz, fp2_const(kSqrtCands[i]));
-    if (eq(mul(sqr(cand), v), zu)) {
+  for (int i = 0; i < 8; ++i) {
+    if (i == 4) {
+      Round<S> r(G);
+      const MulSlot hz = r.mul(fp2_const(kSswuZ), u);
+      const MulSlot hb = r.mul(t, fp2_const(kCZ));
+      r.run();
+      target = r.get(hz);
+      base = r.get(hb);
+    }
+    const Fp2 cand = mul(G, base, fp2_const(kSqrtCands[i & 3]));
+    if (eq(mul(G, sqr(G, cand), v), target)) {
       root = cand;
-      return false;
+      return i < 4;
     }
   }
   root = zero(Fp2());
   return false;
 }
 
-// The canonical standard form: a product by standard 1 (not R), then
-// canonical (ops/field.py from_mont).
-__device__ __forceinline__ Fp from_mont(const Fp& a) {
+// RFC 9380 sgn0 for Fp2 (ops/htc.py fp2_sgn0) from the products of c0 and
+// c1 by standard 1 (ops/field.py from_mont before canonical): c0's parity,
+// or c1's when c0 == 0.
+__device__ __forceinline__ Fp standard_one() {
   Fp one_std = zero(Fp());
   one_std.w[0] = 1u;
-  return canonical(mul(a, one_std));
+  return one_std;
 }
 
-// RFC 9380 sgn0 for Fp2 (ops/htc.py fp2_sgn0): c0's parity, or c1's when
-// c0 == 0.
-__device__ __noinline__ int sgn0(const Fp2& a) {
-  const Fp c0 = from_mont(a.c0);
-  const Fp c1 = from_mont(a.c1);
+__device__ __forceinline__ int sgn0(const Fp& c0_by_one, const Fp& c1_by_one) {
+  const Fp c0 = canonical(c0_by_one);
+  const Fp c1 = canonical(c1_by_one);
   uint32_t nz = 0u;
 #pragma unroll
   for (int j = 0; j < kWords; ++j) nz |= c0.w[j];
   return (int)(c0.w[0] & 1u) | (int)(nz == 0u && (c1.w[0] & 1u));
 }
 
-__device__ __forceinline__ Fp2 iso_coeff(int table, int i) {
-  switch (table) {
-    case 0: return fp2_const(kIsoXNum[i]);
-    case 1: return fp2_const(kIsoXDen[i]);
-    case 2: return fp2_const(kIsoYNum[i]);
-    default: return fp2_const(kIsoYDen[i]);
-  }
-}
-
-// sum_i c_i n^i d^(deg-i) over the power tables np, dp (ops/htc.py
-// _poly_frac).
-__device__ __noinline__ Fp2 poly_frac(int table, const Fp2* np,
-                                      const Fp2* dp, int deg) {
-  Fp2 acc = mul(iso_coeff(table, 0), mul(np[0], dp[deg]));
-#pragma unroll 1
-  for (int i = 1; i <= deg; ++i) {
-    acc = add(acc, mul(iso_coeff(table, i), mul(np[i], dp[deg - i])));
-  }
-  return acc;
-}
-
 // The 3-isogeny E2' -> E2 on x = xn / xd, Jacobian out, Z = 0 when a
-// denominator vanishes (ops/htc.py iso3_jacobian).
-__device__ __noinline__ Jac<Fp2> iso3(const Fp2& xn, const Fp2& xd,
-                                      const Fp2& y) {
-  Fp2 np[4], dp[4];
-  np[0] = one(Fp2());
+// denominator vanishes (ops/htc.py iso3_jacobian). Each polynomial is
+// sum_i c_i (n^i d^(deg-i)) over the power tables (ops/htc.py _poly_frac),
+// summed in the order of i; the products n^i d^(deg-i) are shared among the
+// polynomials of one degree.
+template <int S>
+__device__ __forceinline__ Jac<Fp2> iso3(const Group<S>& G, const Fp2& xn,
+                                         const Fp2& xd, const Fp2& y) {
+  Fp2 np[4], dp[4], m[4];
+  np[0] = dp[0] = one(Fp2());
   np[1] = xn;
-  np[2] = sqr(xn);
-  np[3] = mul(np[2], xn);
-  dp[0] = one(Fp2());
   dp[1] = xd;
-  dp[2] = sqr(xd);
-  dp[3] = mul(dp[2], xd);
-  const Fp2 Xn = poly_frac(0, np, dp, 3);
-  const Fp2 Xd = poly_frac(1, np, dp, 2);
-  const Fp2 Yn = poly_frac(2, np, dp, 3);
-  const Fp2 Yd = poly_frac(3, np, dp, 3);
-  const Fp2 xd2 = mul(xd, Xd);
-  const Fp2 Z = mul(xd2, Yd);
-  const Fp2 X = mul(Xn, mul(xd2, sqr(Yd)));
-  const Fp2 Y = mul(mul(y, Yn), mul(mul(xd2, sqr(xd2)), sqr(Yd)));
+  {
+    Round<S> r(G);
+    const SqrSlot hn = r.sqr(xn), hd = r.sqr(xd);
+    r.run();
+    np[2] = r.get(hn);
+    dp[2] = r.get(hd);
+  }
+  {
+    Round<S> r(G);
+    const MulSlot hn = r.mul(np[2], xn), hd = r.mul(dp[2], xd);
+    r.run();
+    np[3] = r.get(hn);
+    dp[3] = r.get(hd);
+  }
+  // sum_i table[i] * m[i] over m[i] = n^i d^(deg-i), i = 0..deg
+  auto poly = [&](const uint32_t(*table)[2][kWords], int deg) {
+    Round<S> r(G);
+    MulSlot h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i <= deg) h[i] = r.mul(fp2_const(table[i]), m[i]);
+    r.run();
+    Fp2 acc = r.get(h[0]);
+#pragma unroll
+    for (int i = 1; i < 4; ++i)
+      if (i <= deg) acc = add(acc, r.get(h[i]));
+    return acc;
+  };
+  auto powers = [&](int deg) {
+    Round<S> r(G);
+    MulSlot h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i <= deg) h[i] = r.mul(np[i], dp[deg - i]);
+    r.run();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i <= deg) m[i] = r.get(h[i]);
+  };
+  powers(3);
+  const Fp2 Xn = poly(kIsoXNum, 3);
+  const Fp2 Yn = poly(kIsoYNum, 3);
+  const Fp2 Yd = poly(kIsoYDen, 3);
+  powers(2);
+  const Fp2 Xd = poly(kIsoXDen, 2);
+
+  Fp2 xd2, sYd, yYn;
+  {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(xd, Xd);
+    const SqrSlot h2 = r.sqr(Yd);
+    const MulSlot h3 = r.mul(y, Yn);
+    r.run();
+    xd2 = r.get(h1);
+    sYd = r.get(h2);
+    yYn = r.get(h3);
+  }
+  Fp2 Z, m1, sxd2;
+  {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(xd2, Yd), h2 = r.mul(xd2, sYd);
+    const SqrSlot h3 = r.sqr(xd2);
+    r.run();
+    Z = r.get(h1);
+    m1 = r.get(h2);
+    sxd2 = r.get(h3);
+  }
+  Fp2 X, m2;
+  {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(Xn, m1), h2 = r.mul(xd2, sxd2);
+    r.run();
+    X = r.get(h1);
+    m2 = r.get(h2);
+  }
+  const Fp2 Y = mul(G, yYn, mul(G, m2, sYd));
   return {X, Y, Z};
 }
 
 // Simplified SWU onto E2', division-free, then the isogeny (ops/htc.py
 // sswu_fq2 then iso3_jacobian). tv2 == 0 (u = 0) takes den = Z A.
-__device__ __noinline__ Jac<Fp2> sswu_iso(const Fp2& u) {
+template <int S>
+__device__ __noinline__ Jac<Fp2> sswu_iso(const Group<S>& G, const Fp2& u) {
   const Fp2 a = fp2_const(kSswuA);
   const Fp2 b = fp2_const(kSswuB);
   const Fp2 z = fp2_const(kSswuZ);
-  const Fp2 tv1 = mul(z, sqr(u));
-  const Fp2 tv2 = add(sqr(tv1), tv1);
-  const Fp2 num1 = mul(b, add(tv2, one(Fp2())));
-  const Fp2 den = is_zero(tv2) ? mul(z, a) : neg(mul(a, tv2));
-  const Fp2 den2 = sqr(den);
-  const Fp2 gxn = add(add(mul(sqr(num1), num1), mul(mul(a, num1), den2)),
-                      mul(b, mul(den2, den)));
-  const Fp2 gxd = mul(den2, den);
+  const Fp one_std = standard_one();
+  Fp2 u2;
+  int sgn_u;
+  {
+    Round<S> r(G);
+    const SqrSlot h = r.sqr(u);
+    const ProdSlot h0 = r.prod(u.c0, one_std), h1 = r.prod(u.c1, one_std);
+    r.run();
+    u2 = r.get(h);
+    sgn_u = sgn0(r.get(h0), r.get(h1));
+  }
+  const Fp2 tv1 = mul(G, z, u2);
+  const Fp2 tv2 = add(sqr(G, tv1), tv1);
+  const bool exc = is_zero(tv2);
+  Fp2 num1, den;
+  {
+    Round<S> r(G);
+    const MulSlot hn = r.mul(b, add(tv2, one(Fp2())));
+    MulSlot hd;
+    if (exc) {
+      hd = r.mul(z, a);
+    } else {
+      hd = r.mul(a, tv2);
+    }
+    r.run();
+    num1 = r.get(hn);
+    if (exc) {
+      den = r.get(hd);
+    } else {
+      den = neg(r.get(hd));
+    }
+  }
+  Fp2 den2, n2, an;
+  {
+    Round<S> r(G);
+    const SqrSlot h1 = r.sqr(den), h2 = r.sqr(num1);
+    const MulSlot h3 = r.mul(a, num1);
+    r.run();
+    den2 = r.get(h1);
+    n2 = r.get(h2);
+    an = r.get(h3);
+  }
+  Fp2 n3, and2, gxd;
+  {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(n2, num1), h2 = r.mul(an, den2), h3 = r.mul(den2, den);
+    r.run();
+    n3 = r.get(h1);
+    and2 = r.get(h2);
+    gxd = r.get(h3);
+  }
+  const Fp2 gxn = add(add(n3, and2), mul(G, b, gxd));
   Fp2 y1;
-  const bool is_sq = sqrt_ratio(y1, gxn, gxd);
-  const Fp2 xn = is_sq ? num1 : mul(tv1, num1);
-  Fp2 y = is_sq ? y1 : mul(mul(tv1, u), y1);
-  if (sgn0(u) != sgn0(y)) y = neg(y);
-  return iso3(xn, den, y);
+  const bool is_sq = sqrt_ratio(G, y1, gxn, gxd);
+  Fp2 xn, y;
+  if (is_sq) {
+    xn = num1;
+    y = y1;
+  } else {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(tv1, num1), h2 = r.mul(tv1, u);
+    r.run();
+    xn = r.get(h1);
+    y = mul(G, r.get(h2), y1);
+  }
+  int sgn_y;
+  {
+    Round<S> r(G);
+    const ProdSlot h0 = r.prod(y.c0, one_std), h1 = r.prod(y.c1, one_std);
+    r.run();
+    sgn_y = sgn0(r.get(h0), r.get(h1));
+  }
+  if (sgn_u != sgn_y) y = neg(y);
+  return iso3(G, xn, den, y);
+}
+
+// ----------------------------------------------------------- cofactor
+
+// curve.cuh pt_double, its products in four rounds.
+template <int S>
+__device__ __noinline__ Jac<Fp2> pt_double(const Group<S>& G,
+                                           const Jac<Fp2>& P) {
+  Fp2 A, B, Zh, C, Sq;
+  {
+    Round<S> r(G);
+    const SqrSlot h1 = r.sqr(P.X), h2 = r.sqr(P.Y);
+    const MulSlot h3 = r.mul(P.Y, P.Z);
+    r.run();
+    A = r.get(h1);
+    B = r.get(h2);
+    Zh = r.get(h3);
+  }
+  {
+    Round<S> r(G);
+    const SqrSlot h1 = r.sqr(B), h2 = r.sqr(add(P.X, B));
+    r.run();
+    C = r.get(h1);
+    Sq = r.get(h2);
+  }
+  const Fp2 D = dbl(sub(sub(Sq, A), C));
+  const Fp2 E = triple(A);
+  const Fp2 X3 = sub(sqr(G, E), dbl(D));
+  const Fp2 Y3 = sub(mul(G, E, sub(D, X3)), dbl(dbl(dbl(C))));
+  return {X3, Y3, dbl(Zh)};
+}
+
+// curve.cuh pt_add, the complete addition with its case order (P at
+// infinity -> Q, Q at infinity -> P, P == Q -> the doubling, P == -Q ->
+// Z3 = 0), its products in six rounds.
+template <int S>
+__device__ __noinline__ Jac<Fp2> pt_add(const Group<S>& G, const Jac<Fp2>& P,
+                                        const Jac<Fp2>& Q) {
+  if (is_zero(P.Z)) return Q;
+  if (is_zero(Q.Z)) return P;
+  Fp2 Z1Z1, Z2Z2, U1, U2, T1, T2, S1, S2;
+  {
+    Round<S> r(G);
+    const SqrSlot h1 = r.sqr(P.Z), h2 = r.sqr(Q.Z);
+    r.run();
+    Z1Z1 = r.get(h1);
+    Z2Z2 = r.get(h2);
+  }
+  {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(P.X, Z2Z2), h2 = r.mul(Q.X, Z1Z1);
+    const MulSlot h3 = r.mul(Q.Z, Z2Z2), h4 = r.mul(P.Z, Z1Z1);
+    r.run();
+    U1 = r.get(h1);
+    U2 = r.get(h2);
+    T1 = r.get(h3);
+    T2 = r.get(h4);
+  }
+  {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(P.Y, T1), h2 = r.mul(Q.Y, T2);
+    r.run();
+    S1 = r.get(h1);
+    S2 = r.get(h2);
+  }
+  const Fp2 H = sub(U2, U1);
+  const Fp2 rr0 = dbl(sub(S2, S1));
+  if (is_zero(H) && is_zero(rr0)) return pt_double(G, P);
+  Fp2 I, rr, ZS, J, V, Z3;
+  {
+    Round<S> r(G);
+    const SqrSlot h1 = r.sqr(dbl(H)), h2 = r.sqr(rr0), h3 = r.sqr(add(P.Z, Q.Z));
+    r.run();
+    I = r.get(h1);
+    rr = r.get(h2);
+    ZS = r.get(h3);
+  }
+  {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(H, I), h2 = r.mul(U1, I);
+    const MulSlot h3 = r.mul(sub(sub(ZS, Z1Z1), Z2Z2), H);
+    r.run();
+    J = r.get(h1);
+    V = r.get(h2);
+    Z3 = r.get(h3);
+  }
+  const Fp2 X3 = sub(sub(rr, J), dbl(V));
+  Fp2 M, SJ;
+  {
+    Round<S> r(G);
+    const MulSlot h1 = r.mul(rr0, sub(V, X3)), h2 = r.mul(S1, J);
+    r.run();
+    M = r.get(h1);
+    SJ = r.get(h2);
+  }
+  return {X3, sub(M, dbl(SJ)), Z3};
 }
 
 // psi on Jacobian coordinates (ops/htc.py psi_jacobian).
-__device__ __noinline__ Jac<Fp2> psi(const Jac<Fp2>& P) {
-  return {mul(conj(P.X), fp2_const(kPsiCx)), mul(conj(P.Y), fp2_const(kPsiCy)),
-          conj(P.Z)};
+template <int S>
+__device__ __forceinline__ Jac<Fp2> psi(const Group<S>& G,
+                                        const Jac<Fp2>& P) {
+  Round<S> r(G);
+  const MulSlot hx = r.mul(conj(P.X), fp2_const(kPsiCx));
+  const MulSlot hy = r.mul(conj(P.Y), fp2_const(kPsiCy));
+  r.run();
+  return {r.get(hx), r.get(hy), conj(P.Z)};
 }
 
 // [|x|]Q: Q for the leading one, then per bit a doubling and, on a one
 // bit, a complete addition of Q (ops/tkernel_htc.py _x_walk).
-__device__ __noinline__ Jac<Fp2> x_walk(const Jac<Fp2>& Q) {
+template <int S>
+__device__ __noinline__ Jac<Fp2> x_walk(const Group<S>& G, const Jac<Fp2>& Q) {
   Jac<Fp2> acc = Q;
 #pragma unroll 1
   for (int b = kXTopBit - 1; b >= 0; --b) {
-    acc = pt_double(acc);
-    if (x_bit(b)) acc = pt_add(acc, Q);
+    acc = pt_double(G, acc);
+    if (x_bit(b)) acc = pt_add(G, acc, Q);
   }
   return acc;
 }
 
 // h_eff Q = t2 + t - Q - psi(t + Q) + psi^2(2Q), t = [|x|]Q, t2 = [|x|]t
 // (ops/tkernel_htc.py cofactor_plain; x < 0 gives the signs).
-__device__ __noinline__ Jac<Fp2> clear_cofactor(const Jac<Fp2>& Q) {
-  const Jac<Fp2> t = x_walk(Q);
-  const Jac<Fp2> t2 = x_walk(t);
-  const Jac<Fp2> term0 = pt_add(pt_add(t2, t), pt_neg(Q));
-  const Jac<Fp2> term1 = pt_neg(psi(pt_add(t, Q)));
-  const Jac<Fp2> term2 = psi(psi(pt_double(Q)));
-  return pt_add(pt_add(term0, term1), term2);
+template <int S>
+__device__ __noinline__ Jac<Fp2> clear_cofactor(const Group<S>& G,
+                                                const Jac<Fp2>& Q) {
+  const Jac<Fp2> t = x_walk(G, Q);
+  const Jac<Fp2> t2 = x_walk(G, t);
+  const Jac<Fp2> term0 = pt_add(G, pt_add(G, t2, t), pt_neg(Q));
+  const Jac<Fp2> term1 = pt_neg(psi(G, pt_add(G, t, Q)));
+  const Jac<Fp2> term2 = psi(G, psi(G, pt_double(G, Q)));
+  return pt_add(G, pt_add(G, term0, term1), term2);
 }
 
 }  // namespace bls

@@ -1,4 +1,4 @@
-// The two launch shapes of the fused kernels.
+// The three launch shapes of the kernels.
 //
 // One thread per lane (most kernels): a lane (one point, one pair, one
 // Fp12 value) runs its whole chain in one thread. Blocks are small (32
@@ -9,6 +9,10 @@
 // operations run side by side on kCoopThreads threads, 64 so that the
 // widest round of a program (an Fp12 product's 54 Fp products, f^2 beside
 // the doubling step's first level, 45) takes one pass.
+//
+// One warp per lane (K12-K14; htc.cuh): one lane per block of one warp, its
+// independent Fp products side by side on groups of the warp's threads that
+// meet at __syncwarp.
 //
 // Every entry point of the fused kernels is extern "C" and takes its
 // pointers first, then its int options, the lane count and the stream, and
@@ -27,6 +31,8 @@ inline unsigned int lane_blocks(long long n) {
 }
 
 constexpr int kCoopThreads = 64;  // ops/coop.py THREADS
+
+constexpr int kWarpThreads = 32;
 
 __device__ __forceinline__ long long lane_index() {
   return (long long)blockIdx.x * blockDim.x + threadIdx.x;

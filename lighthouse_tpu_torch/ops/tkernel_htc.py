@@ -2,20 +2,24 @@
 the entry points.
 
 Counterpart of ``lighthouse_tpu/ops/tkernel_htc.py``. Two bodies carry the
-sequential depth, and each is a CUDA chain in ``csrc/htc.cuh``, one thread
-per lane:
+sequential depth, each run by a group of one warp's threads in
+``csrc/htc.cuh`` (the chain's independent Fp products side by side, one
+per thread, in rounds that meet at ``__syncwarp``):
 
-* the SSWU + 3-isogeny body: one 757-step ``sqrt_ratio`` exponentiation per
-  u, then straight-line SSWU and isogeny glue, out to a Jacobian point on
-  E2. Its schedule is the classic one of ``ops/htc.py`` op for op (the
-  reference kernel body repeats ``sswu_fq2`` then ``iso3_jacobian``), so
-  its plain version is those two functions;
-* the cofactor body: h_eff by two |x| walks and psi (:func:`cofactor_plain`).
+* the SSWU + 3-isogeny body, on a half-warp: one 757-step ``sqrt_ratio``
+  exponentiation per u, then straight-line SSWU and isogeny glue, out to a
+  Jacobian point on E2. Its schedule is the classic one of ``ops/htc.py``
+  op for op (the reference kernel body repeats ``sswu_fq2`` then
+  ``iso3_jacobian``), so its plain version is those two functions;
+* the cofactor body, on the whole warp: h_eff by two |x| walks and psi
+  (:func:`cofactor_plain`).
 
-The resident kernel K12 runs both bodies and the Q0 + Q1 addition between
-them in one launch; the chained route runs K13 on 2n lanes, the plain
-complete addition of the halves, then K14. Canonical affine output comes
-from kernel K2 (``tkernel_calls.to_affine_g2``) either way.
+The resident kernel K12 runs one message per warp: the two u-halves on the
+two half-warps, then Q0 + Q1 and the cofactor on the warp, in one launch;
+the chained route runs K13 (a u per half-warp) on 2n lanes, the plain
+complete addition of the halves, then K14 (a point per warp). Canonical
+affine output comes from kernel K2 (``tkernel_calls.to_affine_g2``) either
+way.
 
 The wrappers follow ``ops/tkernel_calls.py``: CUDA tensors go to the kernel
 (checked, counted on its ``_build.Kernel``) or the wrapper raises; CPU
@@ -51,6 +55,11 @@ K13 = _kernel("sswu_iso", "216 _sswu_iso_kernel")
 K14 = _kernel("cofactor", "300 _cofactor_kernel")
 
 _US = (2, 2, 48)  # per message: u-half, Fp2 coefficient, limb
+
+# K12's launch shape (csrc/lanes.cuh kWarpThreads, csrc/htc.cuh
+# kHalfThreads): a block is one warp and runs one message.
+WARPS_PER_BLOCK = 1
+THREADS_PER_MESSAGE = 32
 
 # ------------------------------------------------------ plain versions
 
