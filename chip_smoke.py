@@ -12,13 +12,17 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    cycles of one Fp product (and sum) in one thread, from the probe
    ``csrc/fp_probe.cu`` (no path runs it);
 3. K1 against its plain PyTorch version: bit equality on 2^20 random values
-   in [0, 2p) plus the edge rows, big-int agreement on a sample, timings
-   (CUDA events, median of repetitions);
+   in [0, 2p) plus the edge rows, on ragged sizes off its 64-product tile
+   and on broadcast operands, big-int agreement on a sample; its time per
+   call (CUDA events around one call, median of repetitions), its
+   device-only time and its host enqueue per call;
 4. each fused verify kernel (K2-K4, K8-K11) and the full-order subgroup
    check K15 against its plain version on the card, at the shapes the fused
    path gives it and with its edge lanes (infinity, Z = 1, scalars 0, 1 and
-   2^64-1, points outside G2): equality after ``canonical`` (and whether
-   the raw limbs match; K8 and K10, one block per lane, must match raw),
+   2^64-1, points outside G2; for K2 also Z = 0, Z = p, Z in [p, 2p) and
+   Z = p - 1): equality after ``canonical`` (and whether the raw limbs
+   match; K2, K8 and K10 must match raw), its time per call and device-only
+   (K2 also its host enqueue),
    K4 also against K15, the final-exponentiation chain also against the
    classic ``pairing.final_exponentiation``; kernel and plain times; for K8
    and K10 the product and add rounds per lane of their ``ops/coop.py``
@@ -50,10 +54,20 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    valid and swapped batches;
 9. two small batches through every configuration, the chained hash
    (``htc_resident=False``) among them, against the pure-Python oracle;
-10. K1 at every size the main path launched it with (bit equality, time)
-    and its total per verify; the device time of a default verify summed
-    from the kernels' times and launches; the ``kernels`` JSON line, the
-    nvidia-smi line, and the result line.
+10. K1 at every size the main path launched it with (bit equality, time
+    per call, device-only L2-warm and L2-cold, host enqueue) and its
+    totals per verify; the
+    device time of a default verify summed from the kernels' device-only
+    times and launches; the ``kernels`` JSON line, the nvidia-smi line,
+    and the result line.
+
+A time per call spans one launch between two CUDA events on an idle card,
+so it holds the host's enqueue; a device-only time is R launches back to
+back between one pair of events, queued behind a spin kernel, over R,
+L2-warm where the launches share their operands (K1 at 2^20 reads 604 MB,
+beyond the 50 MB L2, all the same), L2-cold where each launch has its own
+operands and a 256 MiB write evicted the L2 before them; a host enqueue
+is the host clock over R calls with one sync after.
 
 Kernel launch counts are zeroed just before each verify and read just after
 it. Each configuration has its list: the default fused path must launch K1,
@@ -76,6 +90,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at its 700 W limit
 # Hopper issues 64 32-bit integer multiply-adds per SM per clock; 132 SMs.
@@ -89,6 +104,7 @@ N_SETS, N_KEYS = 128, 512   # a mainnet block's aggregate attestations
 N_VALUES = 1 << 20          # products in the K1-vs-plain check
 REPS = 20                   # timed repetitions of K1
 KERNEL_REPS = 5             # timed repetitions of a fused kernel
+DEVICE_REPS = 10            # back-to-back launches of a device-only time
 PLAIN_REPS = 3              # of a plain version (launch-bound, seconds)
 
 # RFC 9380 J.10.1, suite BLS12381G2_XMD:SHA-256_SSWU_RO_: message -> affine
@@ -129,7 +145,10 @@ def nvidia_smi_line() -> str:
 
 
 def median_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of fn() over reps runs, by CUDA events."""
+    """Median time of one call of fn() between a pair of CUDA events, over
+    reps runs. The span holds the host's enqueue as well as the device's
+    work (an idle card waits for the launch): the per-call time the table
+    has always carried. ``device_ms`` and ``host_ms`` split it."""
     for _ in range(warmup):
         fn()
     times = []
@@ -142,6 +161,60 @@ def median_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+SPIN_CYCLES_PER_S = 2.0e9   # torch.cuda._sleep cycles: above the SM clock
+
+
+def device_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
+    """Device time per call of fn(): after a warm-up, reps calls back to
+    back between one pair of CUDA events, divided by reps. The calls are
+    queued behind a spin kernel that outlasts their enqueue, so the device
+    runs them without waiting on the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0  # host and device, at least the enqueue
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * (reps * one + 1e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def device_cold_ms(torch, fns, reps: int = 20, warmup: int = 2) -> float:
+    """device_ms with each call's operands outside the L2: fns holds
+    warmup + 1 + reps calls on distinct operands, taken in turn, and a
+    256 MiB write evicts the L2 just before the first of them."""
+    if len(fns) < warmup + 1 + reps:
+        raise ValueError("device_cold_ms needs a call per launch")
+    calls = iter(fns)
+    torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda").zero_()
+    return device_ms(torch, lambda: next(calls)(), reps, warmup)
+
+
+def host_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
+    """Host enqueue per call of fn(): the host clock over reps calls with
+    no sync between them; the one sync comes after the window."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / reps
 
 
 def random_fp(np, rng, n: int):
@@ -298,10 +371,35 @@ def check_mont_mul(torch, np, n_values: int, reps: int) -> dict:
         if field.limbs_to_int(out) != (t + ((-t * ninv) % R) * P) // R:
             raise AssertionError(f"mont_mul row {r} disagrees with big ints")
 
-    kernel_ms = median_ms(torch, lambda: mont_mul.mont_mul_cuda(ta, tb), reps)
+    # ragged sizes (not a multiple of the 64-product tile, and one tile
+    # short of and past a whole number of the persistent grid's walks) and
+    # broadcast operands, raw limbs
+    ragged = [1, 54, 63, 65, 12345, n_values - 37]
+    for m in ragged:
+        if not torch.equal(mont_mul.mont_mul_cuda(ta[:m], tb[-m:]),
+                           mont_mul.mont_mul_plain(ta[:m], tb[-m:])):
+            raise AssertionError(f"mont_mul kernel != plain at n={m}")
+    k = tb[n_values - 1]
+    two = torch.stack([ta[:5000], tb[:5000]])
+    for x, y in ((ta[:5000], k), (k[None], tb[:333]), (two, tb[7000:12000]),
+                 (two[:, :1], tb[:77])):
+        if not torch.equal(mont_mul.mont_mul_cuda(x, y), mont_mul.mont_mul_plain(x, y)):
+            raise AssertionError(f"mont_mul kernel != plain broadcasting "
+                                 f"{list(x.shape)} by {list(y.shape)}")
+    torch.cuda.synchronize()
+
+    def run():
+        return mont_mul.mont_mul_cuda(ta, tb)
+
+    kernel_ms = median_ms(torch, run, reps)
+    dev_ms = device_ms(torch, run, reps)
+    enqueue_ms = host_ms(torch, run, reps)
     plain_ms = median_ms(torch, plain, max(3, reps // 4), warmup=1)
     log(f"mont_mul: {n_values} products, bit-equal to plain: {match}, "
-        f"big-int sample of {len(rows)} rows ok; kernel {kernel_ms:.4f} ms, "
+        f"big-int sample of {len(rows)} rows ok; bit-equal at n in {ragged} "
+        f"and broadcasting; per call {kernel_ms:.4f} ms, device-only "
+        f"{dev_ms:.4f} ms ({576 * n_values / HBM_BYTES_PER_S * 1e3 / dev_ms:.1%} "
+        f"of the bytes bound), host enqueue {enqueue_ms * 1e3:.2f} us; "
         f"plain {plain_ms:.4f} ms")
     return {
         "name": mont_mul.K1.name,
@@ -311,6 +409,8 @@ def check_mont_mul(torch, np, n_values: int, reps: int) -> dict:
         "launches": None,   # filled from the main path's run
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
+        "device_ms": dev_ms,
+        "host_ms": enqueue_ms,
         "plain_ms": plain_ms,
         "bytes": 576 * n_values,
         "fp_products": n_values,
@@ -323,12 +423,17 @@ def check_mont_mul(torch, np, n_values: int, reps: int) -> dict:
 
 def time_at_path_shape(torch, np, entry: dict, sizes, reps: int) -> None:
     """K1 vs plain at every product count the fused path launched K1 with
-    (bit equality and times at each), and its total per verify: the sum of
-    the kernel's time at each size times its launches there, beside the
-    same sum of bounds (bytes: 576 B per product)."""
+    (bit equality and times at each), and its total per verify: the sum
+    over sizes of a time times the launches there, for the per-call time
+    (CUDA events around one call), the device-only time, L2-warm (the same
+    operands every launch, as the path's operands come just written by
+    the glue) and L2-cold (each launch on operands evicted from the L2),
+    and the host enqueue, beside the same sum of bounds (bytes: 576 B per
+    product, from device memory)."""
     from lighthouse_tpu_torch.ops import mont_mul
 
-    total = total_bound = 0.0
+    total = {"ms": 0.0, "device_ms": 0.0, "device_cold_ms": 0.0, "host_ms": 0.0}
+    bound = 0.0
     for n, count in sorted(sizes.items()):
         rng = np.random.default_rng(n)
         ta = torch.from_numpy(random_fp(np, rng, n)).cuda()
@@ -336,21 +441,44 @@ def time_at_path_shape(torch, np, entry: dict, sizes, reps: int) -> None:
         if not torch.equal(mont_mul.mont_mul_cuda(ta, tb),
                            mont_mul.mont_mul_plain(ta, tb)):
             raise AssertionError(f"mont_mul kernel != plain at n={n}")
-        ms = median_ms(torch, lambda: mont_mul.mont_mul_cuda(ta, tb), reps)
-        total += count * ms
-        total_bound += count * 576 * n / HBM_BYTES_PER_S * 1e3
+
+        def run():
+            return mont_mul.mont_mul_cuda(ta, tb)
+
+        # a distinct operand pair for every launch of the L2-cold time
+        sets = [torch.randint(0, 256, (reps + 3, n, 48), dtype=torch.int32,
+                              device="cuda") for _ in range(2)]
+        for limbs in sets:
+            limbs[..., 47] %= 0x34
+        cold = [lambda i=i: mont_mul.mont_mul_cuda(sets[0][i], sets[1][i])
+                for i in range(reps + 3)]
+        t = {"ms": median_ms(torch, run, reps), "device_ms": device_ms(torch, run, reps),
+             "device_cold_ms": device_cold_ms(torch, cold, reps),
+             "host_ms": host_ms(torch, run, reps)}
+        del sets, cold
+        bound += count * 576 * n / HBM_BYTES_PER_S * 1e3
+        for key, v in t.items():
+            total[key] += count * v
         if (n, count) == sizes.most_common(1)[0]:
-            entry["path_n"], entry["path_n_launches"], entry["path_ms"] = n, count, ms
+            entry["path_n"], entry["path_n_launches"] = n, count
+            for key, v in t.items():
+                entry[f"path_{key}"] = v
             entry["path_plain_ms"] = median_ms(
                 torch, lambda: mont_mul.mont_mul_plain(ta, tb), reps)
-            entry["path_bound_ms"] = 576 * n / HBM_BYTES_PER_S * 1e3
-    entry["path_total_ms"], entry["path_total_bound_ms"] = total, total_bound
+            path_bound = 576 * n / HBM_BYTES_PER_S * 1e3
+    for key, v in total.items():
+        entry[f"path_total_{key}"] = v
     log(f"mont_mul at the fused path's most common size n={entry['path_n']} "
-        f"({entry['path_n_launches']} launches): kernel {entry['path_ms']:.4f} ms, "
+        f"({entry['path_n_launches']} launches): per call {entry['path_ms']:.4f} ms, "
+        f"device-only {entry['path_device_ms']:.4f} ms L2-warm, "
+        f"{entry['path_device_cold_ms']:.4f} ms L2-cold (bytes bound "
+        f"{path_bound:.5f} ms), host enqueue {entry['path_host_ms'] * 1e3:.2f} us, "
         f"plain {entry['path_plain_ms']:.4f} ms; over all {sum(sizes.values())} "
-        f"launches at {len(sizes)} sizes, bit-equal at each: {total:.4f} ms per "
-        f"verify (bound {total_bound:.4f} ms); sizes (products: launches) "
-        f"{dict(sorted(sizes.items()))}")
+        f"launches at {len(sizes)} sizes, bit-equal at each, per verify: per-call "
+        f"sum {total['ms']:.4f} ms, device-only {total['device_ms']:.4f} ms "
+        f"L2-warm, {total['device_cold_ms']:.4f} ms L2-cold, host enqueue "
+        f"{total['host_ms']:.4f} ms (bound {bound:.4f} ms); sizes (products: "
+        f"launches) {dict(sorted(sizes.items()))}")
 
 
 # ------------------------------------------------------ the batch of sets
@@ -428,6 +556,26 @@ def fp_product_counts(P: int) -> dict:
         + 3 * c["fp2_sqr"] + 8 * c["fp2_mul"]
     c["cofactor"] = 127 * c["dbl_g2"] + 15 * c["add_g2"] + 3 * 2 * c["fp2_mul"]
     return c
+
+
+def gcd_inverse_ops() -> int:
+    """32-bit integer operations of one fp.cuh gcd_inverse (K2's
+    inversion), with the loop counts read from the source (kDivstepBatch,
+    kDivstepBatches, the limbs kS30) and the operations per step counted
+    from it as written, a 64-bit add or shift and a 32x32 -> 64-bit
+    multiply as 2 each: per divstep 29 (the masks, the three conditional
+    negations and additions, the swap, delta, the three shifts); per limb
+    of a batch update, update_fg_30 22 (4 products, 4 adds, 2 shifts, 2
+    masks) and update_de_30 30 (6 products, 6 adds, 2 shifts, 2 masks),
+    and 10 for update_de_30's multiples of p; ~300 for the reduction, the
+    limb conversions and normalize_30."""
+    import re
+
+    text = (Path(__file__).resolve().parent
+            / "lighthouse_tpu_torch/csrc/fp.cuh").read_text()
+    batch, batches, limbs = (int(re.search(rf"{name} = (\d+);", text).group(1))
+                             for name in ("kDivstepBatch", "kDivstepBatches", "kS30"))
+    return batches * (batch * 29 + limbs * (22 + 30) + 10) + 300
 
 
 def subgroup_full_products(c: dict, P: int) -> int:
@@ -543,10 +691,11 @@ def compare(torch, got, want):
 
 
 def check_kernel(torch, kernel, label, run_kernel, run_plain, fp_products,
-                 nbytes, time_it=True, raw_only=False) -> dict:
+                 nbytes, time_it=True, raw_only=False, int_ops=0) -> dict:
     """One kernel against its plain version on the same inputs; raises
     unless they agree after canonical, or, with ``raw_only``, unless the raw
-    limbs are equal. Returns the kernels-line entry."""
+    limbs are equal. The bound counts its Fp products and ``int_ops`` other
+    32-bit integer operations. Returns the kernels-line entry."""
     got = run_kernel()
     torch.cuda.synchronize()
     want = run_plain()
@@ -558,13 +707,16 @@ def check_kernel(torch, kernel, label, run_kernel, run_plain, fp_products,
         "name": kernel.name, "route": kernel.route, "source": kernel.source,
         "replaces": kernel.replaces, "variant": label, "launches": None,
         "max_abs_err": err, "match": canon, "match_raw": raw,
-        "fp_products": fp_products, "bytes": nbytes, "library_ms": None,
+        "fp_products": fp_products, "int_ops": int_ops, "bytes": nbytes,
+        "library_ms": None,
     }
     if time_it:
         entry["ms"] = median_ms(torch, run_kernel, KERNEL_REPS, warmup=1)
+        entry["device_ms"] = device_ms(torch, run_kernel, DEVICE_REPS, warmup=1)
         entry["plain_ms"] = median_ms(torch, run_plain, PLAIN_REPS, warmup=0)
     log(f"{label}: equal to plain after canonical {canon}, raw limbs {raw}"
-        + (f"; kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.1f} ms"
+        + (f"; kernel per call {entry['ms']:.4f} ms, device-only "
+           f"{entry['device_ms']:.4f} ms, plain {entry['plain_ms']:.1f} ms"
            if time_it else ""))
     return entry
 
@@ -602,7 +754,7 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     from lighthouse_tpu_torch.crypto.bls.curve import g1_generator
     from lighthouse_tpu_torch.crypto.bls.fields import Fq2
     from lighthouse_tpu_torch.crypto.bls.hash_to_curve import map_to_curve_g2
-    from lighthouse_tpu_torch.ops import coop, pairing, points
+    from lighthouse_tpu_torch.ops import coop, field, pairing, points
     from lighthouse_tpu_torch.ops import tkernel_calls as tc
     from lighthouse_tpu_torch.ops.points import FP2_OPS, FP_OPS
 
@@ -636,23 +788,53 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
             n * (2 * coord + 1 + 64 * 4 + 3 * coord))
 
     # K2: Jacobian inputs from K3's plain outputs (random Z, lane 0 and 5/7
-    # at infinity) with one lane at Z = 1
+    # at infinity) with one lane at Z = 1; then the edge lanes. Its Fp
+    # products besides the divstep inversion: G1 the product by R^3 and 4
+    # (zi^2, X zi^2, zi^3, Y zi^3); G2 the norm's 2, R^3, the conjugate's
+    # 2, and an Fp2 square and 3 Fp2 products. Fermat's chain (the TPU
+    # kernel's, and K2's before) is kept as its own bound.
+    zero, p_raw = field.ints_to_limbs([0])[0], field.ints_to_limbs([P])[0]
+    one, minus_one = field.ints_to_limbs_mont([1, P - 1])
     for g, F, x, y, inf, kern, coord in (
             ("g1", FP_OPS, x1, y1, inf1_t, tc.K2_G1, 192),
             ("g2", FP2_OPS, x2, y2, inf2_t, tc.K2_G2, 384)):
         J = [t.clone() for t in points.pt_scalar_mul_bits(F, (x, y), inf, bits)]
-        one = points.pt_from_affine(F, x[10:11], y[10:11])
-        for t, v in zip(J, one):
+        lane_one = points.pt_from_affine(F, x[10:11], y[10:11])
+        for t, v in zip(J, lane_one):
             t[10:11] = v
         fn = tc.to_affine_g1 if g == "g1" else tc.to_affine_g2
-        inv = c["inv"] + 4 if g == "g1" else c["fp2_inv"] + 11
-        # the fused path launches G1 at S lanes, G2 at one
+        products = 5 if g == "g1" else 16
+        fermat = c["inv"] + 4 if g == "g1" else c["fp2_inv"] + 11
+        # the fused path launches G1 at S lanes, G2 at S (the hash) and 1
         for m in ((n,) if g == "g1" else (n, 1)):
             P_ = tuple(t[3:3 + m] if m == 1 else t for t in J)
-            out[kern.name] = check_kernel(
+            e = check_kernel(
                 torch, kern, f"K2 to_affine_{g} {m} lanes",
                 lambda: fn(P_), lambda: points.pt_to_affine(F, P_),
-                m * inv, m * (3 * coord + 2 * coord + 1))
+                m * products, m * (3 * coord + 2 * coord + 1),
+                int_ops=m * gcd_inverse_ops(), raw_only=True)
+            e["fermat_products"] = m * fermat
+            e["host_ms"] = host_ms(torch, lambda: fn(P_))
+            log(f"K2 to_affine_{g} {m} lanes: host enqueue "
+                f"{e['host_ms'] * 1e3:.2f} us per call")
+            out[kern.name] = e
+        # edge lanes: Z = 0, Z = p (the lazy zero), Z = Montgomery one,
+        # Z in [p, 2p) (the same point), Z = p - 1 in Montgomery form
+        E = [t[20:25].cpu().clone() for t in J]
+        z = E[2] if g == "g1" else E[2][:, 0]
+        if g == "g2":
+            E[2][:, 1] = 0
+        lazy = field.limbs_to_int(z[3].numpy())
+        z[3] = torch.from_numpy(field.ints_to_limbs([lazy + P if lazy < P else lazy])[0])
+        for lane, v in enumerate((zero, p_raw, one, None, minus_one)):
+            if v is not None:
+                z[lane] = torch.from_numpy(v)
+        E = tuple(t.cuda() for t in E)
+        check_kernel(torch, kern, f"K2 to_affine_{g} 5 edge lanes",
+                     lambda: fn(E), lambda: points.pt_to_affine(F, E), 0, 0,
+                     time_it=False, raw_only=True)
+        if fn(E)[2].tolist() != [True, True, False, False, False]:
+            raise AssertionError(f"K2 {g}: the edge lanes' infinity flags")
 
     # K4: 96 signatures in G2, 28 on-curve points outside G2, 4 at infinity
     pts = [s.signature.point for s in sets[:96]]
@@ -1269,18 +1451,36 @@ def main() -> int:
         if e["name"] in launches_path:
             e["launches_path"] = launches_path[e["name"]]
         bytes_ms = e.pop("bytes") / HBM_BYTES_PER_S * 1e3
-        ops_ms = e.pop("fp_products") * MADS_PER_FP_PRODUCT / int_rate * 1e3
+        ops_ms = (e.pop("fp_products") * MADS_PER_FP_PRODUCT
+                  + e.pop("int_ops", 0)) / int_rate * 1e3
         e["bound_ms"] = max(bytes_ms, ops_ms)
         e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        if "fermat_products" in e:  # K2: the bound of the Fermat chain it replaced
+            fermat_ms = max(bytes_ms, e.pop("fermat_products")
+                            * MADS_PER_FP_PRODUCT / int_rate * 1e3)
+            log(f"{e['name']}: bound {e['bound_ms']:.6f} ms by its divsteps "
+                f"(device-only {e['device_ms']:.4f} ms); Fermat's chain, which it "
+                f"replaced, {fermat_ms:.6f} ms")
     # the device time of one default verify, estimated: K1 at each of its
     # sizes, every other kernel at the shape it was timed at, times its
-    # launches on the main path
+    # launches on the main path; from the device-only times (K1 L2-warm,
+    # as the glue has just written its operands, and L2-cold), and from
+    # the per-call times (which hold the host's enqueue) as before
     main_launches = fused_runs["valid"]["launches"]
-    device_ms = k1["path_total_ms"] + sum(
+    per_kernel = {e["name"]: e["device_ms"] * main_launches[e["name"]]
+                  for e in entries[1:] if main_launches[e["name"]]}
+    device_total = k1["path_total_device_ms"] + sum(per_kernel.values())
+    device_cold = k1["path_total_device_cold_ms"] + sum(per_kernel.values())
+    per_call_total = k1["path_total_ms"] + sum(
         e["ms"] * main_launches[e["name"]] for e in entries[1:])
-    log(f"device time per default verify ~{device_ms:.3f} ms (K1 "
-        f"{k1['path_total_ms']:.4f} ms over its sizes; the others at their "
-        f"timed shapes x their launches on the main path)")
+    log(f"device time per default verify ~{device_total:.3f} ms from the "
+        f"device-only times, ~{device_cold:.3f} ms with K1 L2-cold (K1 "
+        f"{k1['path_total_device_ms']:.4f} ms L2-warm, "
+        f"{k1['path_total_device_cold_ms']:.4f} ms L2-cold over its sizes, host "
+        f"enqueue {k1['path_total_host_ms']:.4f} ms beside it; the "
+        f"others at their timed shapes x their launches on the main path: "
+        f"{json.dumps({k: round(v, 4) for k, v in per_kernel.items()})}); "
+        f"~{per_call_total:.3f} ms from the per-call times")
     log(f"MSM against the scan at S={wide['S']}: MSM {wide['msm_ms']:.4f} ms "
         f"(K5 {wide['k5_ms']:.4f}, K6 {wide['k6_ms']:.4f}, K7 {wide['k7_ms']:.4f}), "
         f"scan {wide['scan_ms']:.4f} ms (K3 G2 {wide['k3_g2_ms']:.4f})")

@@ -6,8 +6,9 @@
 // performs a final reduction to [0, p), which is what keeps every result
 // bit-identical to the JAX reference (lighthouse_tpu/ops/limb.py).
 //
-// Kernel K1 (mont_mul.cu) is a thin loop around fp_load / fp_mul / fp_store;
-// the fused kernels reach these functions through tower.cuh. The word loops
+// Kernel K1 (mont_mul.cu) runs fp_mul on rows it packs with limbs_to_word /
+// word_to_limbs; the fused kernels reach these functions through tower.cuh
+// (and K2 the divstep inversion fp_inv_gcd). The word loops
 // stay unrolled and inlined here; the tower and group-law functions above
 // them are out of line, which keeps each kernel's build to seconds.
 
@@ -48,26 +49,30 @@ __device__ __constant__ const uint32_t kPMinus2[kWords] = {
     0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 constexpr int kPMinus2TopBit = 380;
 
-// 48 int32 byte limbs (each in [0, 255]) -> 12 words, packed in registers.
-// `src` points at the value's 48 limbs as 12 int4 (16-byte aligned).
+// 4 int32 byte limbs (each in [0, 255]) <-> one 32-bit word.
+__device__ __forceinline__ uint32_t limbs_to_word(const int4 v) {
+  return (uint32_t)v.x | ((uint32_t)v.y << 8) | ((uint32_t)v.z << 16) |
+         ((uint32_t)v.w << 24);
+}
+
+__device__ __forceinline__ int4 word_to_limbs(uint32_t w) {
+  return make_int4((int)(w & 0xffu), (int)((w >> 8) & 0xffu),
+                   (int)((w >> 16) & 0xffu), (int)(w >> 24));
+}
+
+// 48 int32 byte limbs -> 12 words, packed in registers. `src` points at
+// the value's 48 limbs as 12 int4 (16-byte aligned).
 __device__ __forceinline__ void fp_load(const int4* __restrict__ src,
                                         uint32_t w[kWords]) {
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    const int4 v = src[k];
-    w[k] = (uint32_t)v.x | ((uint32_t)v.y << 8) | ((uint32_t)v.z << 16) |
-           ((uint32_t)v.w << 24);
-  }
+  for (int k = 0; k < kWords; ++k) w[k] = limbs_to_word(src[k]);
 }
 
 // 12 words -> 48 int32 byte limbs.
 __device__ __forceinline__ void fp_store(int4* __restrict__ dst,
                                          const uint32_t w[kWords]) {
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    dst[k] = make_int4((int)(w[k] & 0xffu), (int)((w[k] >> 8) & 0xffu),
-                       (int)((w[k] >> 16) & 0xffu), (int)(w[k] >> 24));
-  }
+  for (int k = 0; k < kWords; ++k) dst[k] = word_to_limbs(w[k]);
 }
 
 // ------------------------------------------------------ carry chains
@@ -397,6 +402,190 @@ __device__ __forceinline__ void fp_inv(uint32_t r[kWords],
   }
 #pragma unroll
   for (int j = 0; j < kWords; ++j) r[j] = acc[j];
+}
+
+// ------------------------------------------------- inversion by divsteps
+// Bernstein and Yang's constant-time GCD ("Fast constant-time gcd
+// computation and modular inversion", IACR TCHES 2019(3), Theorem 11.2):
+// for odd f and f^2 + 4 g^2 <= 5 * 2^(2d), divstep^m(1, f, g) has g = 0 once
+// m >= floor((49 d + 57) / 17) (d >= 46). With f = p and 0 <= g < p,
+// d = 381 and m = 1,101; the loop runs 37 batches of 30 = 1,110 divsteps,
+// the same count in every lane, so a warp's lanes never diverge. The words
+// follow libsecp256k1's modinv32 (signed 30-bit limbs, a batch of divsteps
+// as one 2x2 matrix on the low limbs, (d, e) kept in (-2p, p) by adding
+// multiples of p that clear their low 30 bits), with delta in place of its
+// zeta, since the bound above is for divsteps from delta = 1.
+
+constexpr int kDivstepBatch = 30;
+constexpr int kDivstepBatches = 37;  // 37 * 30 = 1,110 >= 1,101
+constexpr int kS30 = 13;             // 13 x 30 = 390 bits: 381 and a sign
+constexpr int32_t kM30 = 0x3fffffff;
+
+// p in 30-bit limbs, and p^-1 mod 2^30.
+__device__ __constant__ const int32_t kP30[kS30] = {
+    0x3fffaaab, 0x27fbffff, 0x153ffffb, 0x2affffac, 0x30f6241e,
+    0x034a83da, 0x112bf673, 0x12e13ce1, 0x2cd76477, 0x1ed90d2e,
+    0x29a4b1ba, 0x3a8e5ff9, 0x001a0111};
+constexpr uint32_t kPInv30 = 0x30003u;
+
+// R^3 mod p: fp_mul by it takes the integer inverse of a R back to
+// Montgomery form, (a R)^-1 R^3 R^-1 = a^-1 R.
+__device__ __constant__ const uint32_t kR3[kWords] = {
+    0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu,
+    0x615e29ddu, 0x9a53352au, 0x921e1761u, 0x34c04e5eu,
+    0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
+
+// 30 divsteps on the low 30 bits of f (odd) and g. Returns the new delta
+// and the transition matrix t = (u, v, q, r) scaled by 2^30:
+// 2^30 (f', g') = (u f + v g, q f + r g), with |u| + |v| <= 2^30 and
+// |q| + |r| <= 2^30. Masks in place of branches: c1 = (delta > 0),
+// c2 = (g odd); a swap step is (1 - delta, g, (g - f) / 2), any other
+// (1 + delta, f, (g + (g & 1) f) / 2).
+__device__ __forceinline__ int32_t divsteps_30(int32_t delta, uint32_t f,
+                                               uint32_t g, int32_t t[4]) {
+  uint32_t u = 1u, v = 0u, q = 0u, r = 1u;
+#pragma unroll
+  for (int i = 0; i < kDivstepBatch; ++i) {
+    const uint32_t c1 = (uint32_t)((-delta) >> 31);
+    const uint32_t c2 = 0u - (g & 1u);
+    const uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    const uint32_t c = c1 & c2;
+    delta = (int32_t)(((uint32_t)delta ^ c) - c) + 1;
+    f += g & c;
+    u += q & c;
+    v += r & c;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t[0] = (int32_t)u;
+  t[1] = (int32_t)v;
+  t[2] = (int32_t)q;
+  t[3] = (int32_t)r;
+  return delta;
+}
+
+// (f, g) = t (f, g) / 2^30, exact (the divsteps cleared the low 30 bits).
+__device__ __forceinline__ void update_fg_30(int32_t f[kS30], int32_t g[kS30],
+                                             const int32_t t[4]) {
+  int64_t cf = (int64_t)t[0] * f[0] + (int64_t)t[1] * g[0];
+  int64_t cg = (int64_t)t[2] * f[0] + (int64_t)t[3] * g[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < kS30; ++i) {
+    cf += (int64_t)t[0] * f[i] + (int64_t)t[1] * g[i];
+    cg += (int64_t)t[2] * f[i] + (int64_t)t[3] * g[i];
+    f[i - 1] = (int32_t)cf & kM30;
+    g[i - 1] = (int32_t)cg & kM30;
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f[kS30 - 1] = (int32_t)cf;
+  g[kS30 - 1] = (int32_t)cg;
+}
+
+// (d, e) = (t (d, e) + p (md, me)) / 2^30 with md, me chosen so the low
+// 30 bits vanish (and p added where d or e is negative): d, e stay in
+// (-2p, p) and keep f = d x, g = e x mod p for the input x.
+__device__ __forceinline__ void update_de_30(int32_t d[kS30], int32_t e[kS30],
+                                             const int32_t t[4]) {
+  const int32_t sd = d[kS30 - 1] >> 31, se = e[kS30 - 1] >> 31;
+  int32_t md = (t[0] & sd) + (t[1] & se);
+  int32_t me = (t[2] & sd) + (t[3] & se);
+  int64_t cd = (int64_t)t[0] * d[0] + (int64_t)t[1] * e[0];
+  int64_t ce = (int64_t)t[2] * d[0] + (int64_t)t[3] * e[0];
+  md -= (int32_t)((kPInv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)kM30);
+  me -= (int32_t)((kPInv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)kM30);
+  cd += (int64_t)kP30[0] * md;
+  ce += (int64_t)kP30[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < kS30; ++i) {
+    cd += (int64_t)t[0] * d[i] + (int64_t)t[1] * e[i] + (int64_t)kP30[i] * md;
+    ce += (int64_t)t[2] * d[i] + (int64_t)t[3] * e[i] + (int64_t)kP30[i] * me;
+    d[i - 1] = (int32_t)cd & kM30;
+    e[i - 1] = (int32_t)ce & kM30;
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d[kS30 - 1] = (int32_t)cd;
+  e[kS30 - 1] = (int32_t)ce;
+}
+
+// Carry each limb's bits above 30 into the next: limbs back in [0, 2^30)
+// but the top one, which keeps the sign.
+__device__ __forceinline__ void carry_30(int32_t a[kS30]) {
+#pragma unroll
+  for (int i = 0; i < kS30 - 1; ++i) {
+    a[i + 1] += a[i] >> 30;
+    a[i] &= kM30;
+  }
+}
+
+// a in (-2p, p) -> a * sign(s) in [0, p): add p if negative, negate if
+// s < 0, add p if still negative.
+__device__ __forceinline__ void normalize_30(int32_t a[kS30], int32_t s) {
+  int32_t m = a[kS30 - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < kS30; ++i) a[i] += kP30[i] & m;
+  const int32_t n = s >> 31;
+#pragma unroll
+  for (int i = 0; i < kS30; ++i) a[i] = (a[i] ^ n) - n;
+  carry_30(a);
+  m = a[kS30 - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < kS30; ++i) a[i] += kP30[i] & m;
+  carry_30(a);
+}
+
+// r = x^-1 mod p as a plain integer in [0, p) (0 -> 0), for x in [0, p).
+__device__ __forceinline__ void gcd_inverse(uint32_t r[kWords],
+                                            const uint32_t x[kWords]) {
+  int32_t f[kS30], g[kS30], d[kS30], e[kS30];
+#pragma unroll
+  for (int i = 0; i < kS30; ++i) {
+    const int b = 30 * i, w = b / 32, s = b % 32;
+    uint32_t v = x[w] >> s;
+    if (s > 2 && w + 1 < kWords) v |= x[w + 1] << (32 - s);
+    f[i] = kP30[i];
+    g[i] = (int32_t)(v & (uint32_t)kM30);
+    d[i] = 0;
+    e[i] = i == 0 ? 1 : 0;
+  }
+  int32_t delta = 1;
+#pragma unroll 1
+  for (int b = 0; b < kDivstepBatches; ++b) {
+    int32_t t[4];
+    delta = divsteps_30(delta, (uint32_t)f[0], (uint32_t)g[0], t);
+    update_de_30(d, e, t);
+    update_fg_30(f, g, t);
+  }
+  // g = 0 and f = +-1 (or f = p when x = 0, where d = 0): x^-1 = d * f
+  normalize_30(d, f[kS30 - 1]);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const int b = 32 * j, l = b / 30, s = b % 30;  // s is even: s <= 28
+    uint32_t v = (uint32_t)d[l] >> s;
+    if (l + 1 < kS30) v |= (uint32_t)d[l + 1] << (30 - s);
+    r[j] = v;
+  }
+}
+
+// r = a^-1 in Montgomery form (0 -> 0) for a in [0, 2p): a reduced to
+// [0, p), its integer inverse by the divsteps above, then one fp_mul by
+// R^3. Same value mod p as fp_inv; the representative in [0, 2p) may
+// differ, so it serves where the result is made canonical (K2).
+__device__ __forceinline__ void fp_inv_gcd(uint32_t r[kWords],
+                                           const uint32_t a[kWords]) {
+  uint32_t c[kWords], i[kWords];
+  fp_canonical(c, a);
+  gcd_inverse(i, c);
+  fp_mul(r, i, kR3);
 }
 
 }  // namespace fp

@@ -28,6 +28,7 @@ from . import _build
 from ._carry import const, conv, regroup, resolve
 
 N_LIMBS = 48
+_TAIL = (N_LIMBS,)
 R_BITS = 8 * N_LIMBS
 
 N_WORDS = 24  # the plain version works in 16-bit words
@@ -103,35 +104,54 @@ def _kernel_fn():
     return _FN
 
 
-def _operand(x: torch.Tensor, shape) -> torch.Tensor:
-    """Materialize a broadcast operand as a contiguous, 16-byte aligned
-    int32 [..., 48] tensor (the kernel reads each value as 12 int4)."""
-    x = x.expand(shape).contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
+def _broadcast(a: torch.Tensor, b: torch.Tensor):
+    """Both operands expanded to their common shape, by shape arithmetic
+    (the rare case: the verify path passes equal shapes)."""
+    sa, sb = tuple(a.shape), tuple(b.shape)
+    k = max(len(sa), len(sb))
+    sa, sb = (1,) * (k - len(sa)) + sa, (1,) * (k - len(sb)) + sb
+    shape = []
+    for x, y in zip(sa, sb):
+        if x != y and 1 not in (x, y):
+            raise ValueError(f"mont_mul operands do not broadcast: {a.shape}, {b.shape}")
+        shape.append(y if x == 1 else x)
+    return a.expand(shape), b.expand(shape)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x as a contiguous, 16-byte aligned tensor (the kernel copies whole
+    rows of 12 int4): x itself in the common case."""
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
     return x
 
 
 def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on CUDA tensors (broadcasting over leading axes)."""
-    if a.dtype != torch.int32 or b.dtype != torch.int32:
+    """Launch K1 on CUDA tensors (broadcasting over leading axes).
+
+    The verify path's operands have one shape and are contiguous and
+    aligned: then the launch is a few attribute reads, one ``empty_like``,
+    the current stream and one ctypes call, and no operand is copied."""
+    if a.dtype is not torch.int32 or b.dtype is not torch.int32:
         raise TypeError(f"mont_mul wants int32 limbs, got {a.dtype}, {b.dtype}")
-    if a.device.type != "cuda" or b.device != a.device:
+    if not a.is_cuda or b.get_device() != a.get_device():
         raise ValueError(
             f"mont_mul kernel wants both operands on one CUDA device, got "
             f"{a.device} and {b.device}"
         )
-    if a.shape[-1] != N_LIMBS or b.shape[-1] != N_LIMBS:
+    if a.shape[-1:] != _TAIL or b.shape[-1:] != _TAIL:
         raise ValueError(f"last axis must be {N_LIMBS} limbs")
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    n = out.numel() // N_LIMBS
+    if a.shape != b.shape:
+        a, b = _broadcast(a, b)
+    a, b = _aligned(a), _aligned(b)
+    out = torch.empty_like(a)
+    n = a.numel() // N_LIMBS
     if n == 0:
         return out
-    a = _operand(a, shape)
-    b = _operand(b, shape)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _kernel_fn()(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream)
+    rc = _kernel_fn()(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                      _build.current_stream(a))
     if rc != 0:
         raise RuntimeError(f"mont_mul kernel launch failed: CUDA error {rc}")
     K1.launches += 1
@@ -141,8 +161,8 @@ def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K1 for CUDA tensors, the plain version for CPU tensors."""
-    if a.device.type == "cuda" or b.device.type == "cuda":
+    if a.is_cuda or b.is_cuda:
         return mont_mul_cuda(a, b)
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    if a.is_cpu and b.is_cpu:
         return mont_mul_plain(a, b)
     raise ValueError(f"unsupported devices {a.device}, {b.device}")

@@ -115,7 +115,7 @@ def _launch(kernel: _build.Kernel, tensors, ints, n: int) -> None:
     if n == 0:
         return
     fn = getattr(kernel.library.load(), f"lh_{kernel.name}")
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+    stream = _build.current_stream(tensors[0])
     rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors),
             *(ctypes.c_int(i) for i in ints),
             ctypes.c_longlong(n), ctypes.c_void_p(stream))

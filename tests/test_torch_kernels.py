@@ -62,8 +62,12 @@ def test_kernel_wrapper_rejects(bad, err):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4000,), (3, 5, 7), (0,)])
+@pytest.mark.parametrize("shape", [(4000,), (3, 5, 7), (0,), (1,), (54,), (63,),
+                                   (65,), (4097,), (70_001,)])
 def test_kernel_matches_plain_and_bigint(shape):
+    """K1 against the plain version and Python integers; K1's tiles are 64
+    products, so sizes off the tile (and a tile walk past several) copy,
+    compute and store only their rows."""
     _card()
     n = int(np.prod(shape))
     a, b = _operands(2, n)
@@ -97,6 +101,42 @@ def test_kernel_edges_and_broadcast():
     assert odd.data_ptr() % 16
     assert torch.equal(mont_mul.mont_mul_cuda(odd, b[:5]),
                        mont_mul.mont_mul_plain(odd, b[:5]))
+    # operands of different shapes, broadcast by the wrapper
+    a, b = _operands(5, 400)
+    for sa, sb in (((300, 48), (48,)), ((2, 1, 48), (77, 48)), ((1, 48), (333, 48))):
+        x = a.reshape(-1)[:int(np.prod(sa))].reshape(sa).cuda()
+        y = b.reshape(-1)[:int(np.prod(sb))].reshape(sb).cuda()
+        assert torch.equal(mont_mul.mont_mul_cuda(x, y), mont_mul.mont_mul_plain(x, y))
+
+
+@pytest.mark.parametrize("sa, sb", [
+    ((5, 48), (48,)), ((2, 1, 48), (77, 48)), ((1, 48), (333, 48)),
+    ((3, 5, 7, 48), (5, 1, 48)), ((4, 48), (4, 48)),
+])
+def test_broadcast_by_shape_arithmetic_matches_torch(sa, sb):
+    """The wrapper's broadcast (shape arithmetic, taken only when the
+    shapes differ) gives torch's shape; incompatible shapes raise."""
+    a, b = torch.zeros(sa, dtype=torch.int32), torch.zeros(sb, dtype=torch.int32)
+    x, y = mont_mul._broadcast(a, b)
+    assert x.shape == y.shape == torch.broadcast_shapes(a.shape, b.shape)
+    with pytest.raises(ValueError):
+        mont_mul._broadcast(torch.zeros((5, 48), dtype=torch.int32),
+                            torch.zeros((3, 6, 48), dtype=torch.int32))
+
+
+def test_aligned_operand_is_used_as_it_is():
+    """A contiguous 16-byte aligned operand (the verify path's every one)
+    reaches the kernel uncopied; an offset or strided one is copied into
+    an aligned contiguous tensor."""
+    a = torch.zeros(8, 48, dtype=torch.int32)
+    assert mont_mul._aligned(a) is a
+    buf = torch.zeros(1 + 48 * 5, dtype=torch.int32)
+    odd = buf[1:].view(5, 48)
+    got = mont_mul._aligned(odd)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert torch.equal(got, odd)
+    t = mont_mul._aligned(a.t().contiguous().t())
+    assert t.is_contiguous() and torch.equal(t, a)
 
 
 # ------------------------------------------------------ the fused kernels
@@ -145,6 +185,24 @@ def test_scalar_mul_and_to_affine_kernels_match_plain(group):
     got = aff(J)
     assert _same(got, points.pt_to_affine(F, J))
     assert got[2].tolist() == [True, False, False, False, True]  # [0]Q, inf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_to_affine_kernel_edge_lanes(group):
+    """K2 (the divstep inversion) raw-equal to pt_to_affine (Fermat) with
+    Z = 0, Z = p (the lazy zero), Z = Montgomery one, Z in [p, 2p) and
+    Z = p - 1 in Montgomery form; the first two are infinity."""
+    _card()
+    gen, F, pack, _ = _group(group)
+    x, y, _ = pack([gen.mul(k) for k in (2, 3, 5, 7, 11)])
+    zs = field.ints_to_limbs([0, P, R % P, P + 12345, (P - 1) * R % P])
+    z = zs if group == "g1" else np.stack([zs, np.zeros_like(zs)], axis=1)
+    J = _cuda(x, y, z)
+    aff = tc.to_affine_g1 if group == "g1" else tc.to_affine_g2
+    got = aff(J)
+    assert _same(got, points.pt_to_affine(F, J))
+    assert got[2].tolist() == [True, True, False, False, False]
 
 
 @pytest.mark.cuda
