@@ -18,23 +18,32 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    device-only time and its host enqueue per call;
 4. each fused verify kernel (K2-K4, K8-K11) and the full-order subgroup
    check K15 against its plain version on the card, at the shapes the fused
-   path gives it and with its edge lanes (infinity, Z = 1, scalars 0, 1 and
-   2^64-1, points outside G2; for K2 also Z = 0, Z = p, Z in [p, 2p) and
-   Z = p - 1): equality after ``canonical`` (and whether the raw limbs
-   match; K2, K8 and K10 must match raw), its time per call and device-only
-   (K2 also its host enqueue),
+   path gives it and with its edge lanes (infinity, Z = 1, scalars 0, 1,
+   2^64-1 and single one bits, a base at infinity, points outside G2; for
+   K2 also Z = 0, Z = p, Z in [p, 2p) and Z = p - 1): equality after
+   ``canonical`` (and whether the raw limbs match; K2, K3, K8 and K10 must
+   match raw), its time per call and device-only (K2 also its host
+   enqueue),
    K4 also against K15, the final-exponentiation chain also against the
    classic ``pairing.final_exponentiation``; kernel and plain times; for K8
    and K10 the product and add rounds per lane of their ``ops/coop.py``
-   programs, their shared memory and the time per round;
-5. the MSM kernels (K5 accumulate, K6 tree, K7 Horner) against their plain
-   versions at the main path's shapes (the batch's 128 signatures, a
-   schedule from seeded scalars, L = 48), on all 256 lanes (K7 on lane 0),
-   then on the edge batch (a duplicate signature whose mixed addition
-   doubles, S and -S cancelling in a bucket before a further addition, an
-   empty bucket) and with every set skipped; the MSM point against the scan
+   programs, their shared memory and the time per round; for K3 (a lane on
+   a group of a warp's threads on ``csrc/warp_curve.cuh``: the whole warp
+   up to one lane per SM, packed past that) its launch shape, its rounds
+   per lane, counted from the bits, and the time per round; then K3 G1 and
+   G2 at 128, 256, 512 and 2048 lanes in both shapes, raw-equal and
+   device-only, beside the shape the launch takes;
+5. the MSM kernels (K5 accumulate, K6 tree, K7 Horner, the last one warp on
+   ``csrc/warp_curve.cuh``) against their plain versions at the main path's
+   shapes (the batch's 128 signatures, a schedule from seeded scalars, L =
+   48), on all 256 lanes (K7 on lane 0, raw limbs, its rounds and time per
+   round), then on the edge batch (a duplicate signature whose mixed
+   addition doubles, S and -S cancelling in a bucket before a further
+   addition, an empty bucket), with every set skipped, and K7 on windows
+   that take every leg of the complete addition; the MSM point against the scan
    (K3 G2 and the S-leaf tree) and the oracle's sum r_i S_i at canonical
-   affine; kernel-only times of the MSM against the scan at S=2048;
+   affine; kernel-only times of the MSM against the scan at S=2048, where
+   K3 G2 also runs raw-equal to its plain version at 2048 lanes;
 6. the hash kernels (K12 resident map, K13 SSWU + isogeny, K14 cofactor;
    one warp per message, htc.cu's ptxas lines repeated) against their
    plain versions, raw limbs equal, at the shapes the batch's 128 distinct
@@ -635,15 +644,20 @@ def sswu_products(c: dict, work) -> int:
             + (0 if is_sq else c["z_setup"] + c["non_square"]) + c["sgn0"] + c["iso"])
 
 
-# Rounds of the warp bodies (csrc/htc.cuh): per u-half, SSWU's 7 rounds,
+# Rounds of the warp group law (csrc/warp_curve.cuh): a doubling 4, a
+# complete or a mixed addition 6 (an addition onto infinity or of infinity
+# returns at once: none), psi 1.
+DBL_ROUNDS = 4
+ADD_ROUNDS = 6
+# Rounds of the hash bodies (csrc/htc.cuh): per u-half, SSWU's 7 rounds,
 # sqrt_ratio's 6 before the power, the power's 757 squarings and 365
 # products, t, the isogeny's 13 and sgn0(y)'s 1; 3 per candidate check, 1
-# to set up the Z candidates, 2 for the non-square leg. The cofactor: 4 per
-# doubling, 6 per complete addition, 1 per psi: two walks of 63 doublings
-# and 5 additions, 5 more additions, a doubling, 3 psi. Q0 + Q1: 6.
+# to set up the Z candidates, 2 for the non-square leg. The cofactor: two
+# walks of 63 doublings and 5 additions, 5 more additions, a doubling, 3
+# psi. Q0 + Q1: an addition.
 SSWU_FIXED_ROUNDS = 7 + 6 + 757 + 365 + 1 + 13 + 1
-COFACTOR_ROUNDS = 2 * (63 * 4 + 5 * 6) + 5 * 6 + 4 + 3
-ADD_ROUNDS = 6
+COFACTOR_ROUNDS = (2 * (63 * DBL_ROUNDS + 5 * ADD_ROUNDS) + 5 * ADD_ROUNDS
+                   + DBL_ROUNDS + 3)
 
 
 def sswu_rounds(work) -> int:
@@ -660,12 +674,132 @@ def map_rounds(row) -> int:
             + ADD_ROUNDS + COFACTOR_ROUNDS)
 
 
+def scalar_mul_adds(np, inf, bits):
+    """K3's mixed additions per lane: one on each one bit after the first
+    (the first adds to infinity, which returns at once); lanes at infinity
+    add nothing."""
+    ones = bits.sum(axis=1)
+    return np.where(inf | (ones == 0), 0, ones - 1)
+
+
+def scalar_mul_rounds(np, inf, bits, lanes: int = 1) -> int:
+    """Rounds of K3's slowest warp at ``lanes`` lanes per warp: a doubling
+    per bit, and a mixed addition on each bit where a lane of the warp adds
+    (a one bit after its first, on a base not at infinity), as the warp
+    runs the addition once for all its groups that take it."""
+    adds = (bits == 1) & (np.cumsum(bits, axis=1) > 1) & ~inf[:, None]
+    n = bits.shape[0]
+    adds = np.pad(adds, ((0, -n % lanes), (0, 0))).reshape(-1, lanes, bits.shape[1])
+    return int(bits.shape[1] * DBL_ROUNDS + adds.any(axis=1).sum(axis=1).max() * ADD_ROUNDS)
+
+
+def horner_rounds(c: dict, k7_products: int) -> int:
+    """Rounds of K7: 60 doublings, and a complete addition for each of the
+    additions msm_products counts in its Fp products."""
+    return 60 * DBL_ROUNDS + (k7_products - 60 * c["dbl_g2"]) // c["add_g2"] * ADD_ROUNDS
+
+
+def warp_report(torch, entry: dict, label: str, rounds: int, products: int,
+                run, shape: str = "one warp per lane, one lane per block of one warp") -> None:
+    """Measure a warp group law kernel's host enqueue per call into its
+    kernels-line entry, and log its launch shape, its rounds on the slowest
+    lane and its time per round (per call and device-only). The entry keeps
+    only measured numbers, so the rounds stay in the log line."""
+    entry["host_ms"] = host_ms(torch, run)
+    log(f"{label}: {shape}; "
+        f"{rounds} rounds on the slowest lane ({products} Fp products, which "
+        f"one thread ran in a row); per call {entry['ms']:.4f} ms = "
+        f"{entry['ms'] * 1e3 / rounds:.4f} us per round, device-only "
+        f"{entry['device_ms']:.4f} ms = {entry['device_ms'] * 1e3 / rounds:.4f} us "
+        f"per round; host enqueue {entry['host_ms'] * 1e3:.2f} us per call")
+
+
+def k3_lanes_per_warp(tc, g2: bool, n: int) -> int:
+    """The lanes per warp that K3's launch takes for n lanes on this card."""
+    import ctypes
+
+    lanes = ctypes.c_int(0)
+    rc = tc.K3_G1.library.load().lh_scalar_mul_lanes_per_warp(
+        ctypes.c_int(int(g2)), ctypes.c_longlong(n), ctypes.byref(lanes))
+    if rc:
+        raise RuntimeError(f"lh_scalar_mul_lanes_per_warp: CUDA error {rc}")
+    return lanes.value
+
+
+def k3_shape(lanes: int) -> str:
+    return ("one warp per lane, one lane per block of one warp" if lanes == 1 else
+            f"{lanes} lanes per block of one warp, {32 // lanes} threads per lane")
+
+
+def k3_shaped(torch, tc, g2: bool, lanes: int, x, y, inf, bits):
+    """K3 at a given lanes per warp, through the library's
+    lh_scalar_mul_shaped (not counted: the smoke's comparison of shapes)."""
+    import ctypes
+
+    from lighthouse_tpu_torch.ops import _build
+
+    out = torch.empty((3, *x.shape), dtype=torch.int32, device=x.device)
+    rc = tc.K3_G1.library.load().lh_scalar_mul_shaped(
+        ctypes.c_int(int(g2)), ctypes.c_int(lanes),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (x, y, inf, bits, *out)),
+        ctypes.c_int(bits.shape[1]), ctypes.c_longlong(x.shape[0]),
+        ctypes.c_void_p(_build.current_stream(x)))
+    if rc:
+        raise RuntimeError(f"lh_scalar_mul_shaped({int(g2)}, {lanes}): CUDA error {rc}")
+    return out[0], out[1], out[2]
+
+
+def k3_lane_sweep(torch, np, sets, sizes=(128, 256, 512, 2048)) -> dict:
+    """K3 G1 and G2 at n lanes (the bases of the batch's keys and
+    signatures, repeated; seeded 64-bit scalars, as a verify of n sets
+    draws) in both launch shapes, one warp per lane and packed: each raw-
+    equal to pt_scalar_mul_bits, both device-only, with the shape the
+    launch takes for n and each shape's rounds on its slowest warp.
+    Returns {"g1 128": {...}, ...}."""
+    from lighthouse_tpu_torch.ops import points
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+
+    dev = torch.device("cuda")
+    res = {}
+    for g, F, packed in (("g1", points.FP_OPS, 8), ("g2", points.FP2_OPS, 4)):
+        if g == "g1":
+            bx, by, _ = points.g1_to_dev([s.signing_keys[0].point for s in sets])
+        else:
+            bx, by, _ = points.g2_to_dev([s.signature.point for s in sets])
+        for n in sizes:
+            rows = np.arange(n) % len(sets)
+            bits_np = points.scalars_to_bits([int(k) for k in seeded_scalars(np, n, n)], 64)
+            inf_np = np.zeros(n, bool)
+            x, y, inf, bits = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                               for a in (bx[rows], by[rows], inf_np, bits_np))
+            want = points.pt_scalar_mul_bits(F, (x, y), inf, bits)
+            auto = k3_lanes_per_warp(tc, g == "g2", n)
+            row = {"lanes_per_warp": auto}
+            for shape, lanes in (("one_warp", 1), ("packed", packed)):
+                def run(lanes=lanes):
+                    return k3_shaped(torch, tc, g == "g2", lanes, x, y, inf, bits)
+                if not all(torch.equal(a, b) for a, b in zip(run(), want)):
+                    raise AssertionError(f"K3 {g} at {n} lanes, {lanes} per warp, "
+                                         "!= pt_scalar_mul_bits in its raw limbs")
+                rounds = scalar_mul_rounds(np, inf_np, bits_np, lanes)
+                ms = device_ms(torch, run, DEVICE_REPS, warmup=1)
+                row[shape] = {"lanes_per_warp": lanes, "device_ms": ms, "rounds": rounds,
+                              "us_per_round": ms * 1e3 / rounds}
+            fn = tc.scalar_mul_g1 if g == "g1" else tc.scalar_mul_g2
+            if not all(torch.equal(a, b) for a, b in zip(fn(x, y, inf, bits), want)):
+                raise AssertionError(f"K3 {g} wrapper at {n} lanes != pt_scalar_mul_bits")
+            res[f"{g} {n}"] = row
+            log(f"K3 {g} at {n} lanes (seeded 64-bit scalars), raw-equal to its "
+                f"plain version in both shapes; the launch takes {auto} per warp; "
+                f"device-only: {json.dumps(row)}")
+    return res
+
+
 def scalar_mul_products(np, c: dict, g: str, inf, bits) -> int:
     """K3's Fp products for these lanes: 64 doublings each, and a mixed
     addition on each one bit after the first (the first adds to infinity,
     which returns at once); lanes at infinity add nothing."""
-    ones = bits.sum(axis=1)
-    adds = np.where(inf | (ones == 0), 0, ones - 1).sum()
+    adds = scalar_mul_adds(np, inf, bits).sum()
     return int(bits.shape[0] * bits.shape[1] * c[f"dbl_{g}"] + adds * c[f"madd_{g}"])
 
 
@@ -770,22 +904,38 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     x2, y2, inf2 = points.g2_to_dev([s.signature.point for s in sets])
     inf1[5] = inf2[7] = True
     scal = [2 * int(k) + 1 for k in rng.integers(0, 1 << 63, n, dtype=np.int64)]
-    scal[:3] = [0, 1, (1 << 64) - 1]
+    scal[:4] = [0, 1, (1 << 64) - 1, 1 << 40]
     bits_np = points.scalars_to_bits(scal, 64)
     x1, y1, inf1_t, x2, y2, inf2_t, bits = cuda((x1, y1, inf1, x2, y2, inf2, bits_np))
     out = {}
 
-    # K3: [k]Q for G1 keys and G2 signatures
+    # K3: [k]Q for G1 keys and G2 signatures, raw limbs; then the edge
+    # lanes: scalars 0 and 2^64 - 1, single one bits at the top, above the
+    # middle and at the bottom, and a base at infinity under 2^64 - 1
+    edge_scal = [0, (1 << 64) - 1, 1 << 63, 1 << 40, 1, (1 << 64) - 1]
+    edge_inf = np.arange(len(edge_scal)) == 5
+    ebits, einf = cuda((points.scalars_to_bits(edge_scal, 64), edge_inf))
     for g, F, x, y, inf, inf_np, kern, coord in (
             ("g1", FP_OPS, x1, y1, inf1_t, inf1, tc.K3_G1, 192),
             ("g2", FP2_OPS, x2, y2, inf2_t, inf2, tc.K3_G2, 384)):
         fn = tc.scalar_mul_g1 if g == "g1" else tc.scalar_mul_g2
+        products = scalar_mul_products(np, c, g, inf_np, bits_np)
         out[kern.name] = check_kernel(
             torch, kern, f"K3 scalar_mul_{g} {n} lanes",
             lambda: fn(x, y, inf, bits),
             lambda: points.pt_scalar_mul_bits(F, (x, y), inf, bits),
-            scalar_mul_products(np, c, g, inf_np, bits_np),
-            n * (2 * coord + 1 + 64 * 4 + 3 * coord))
+            products, n * (2 * coord + 1 + 64 * 4 + 3 * coord), raw_only=True)
+        lanes = k3_lanes_per_warp(tc, g == "g2", n)
+        warp_report(torch, out[kern.name], f"K3 {g} {n} lanes",
+                    scalar_mul_rounds(np, inf_np, bits_np, lanes),
+                    max(scalar_mul_products(np, c, g, inf_np[i:i + 1], bits_np[i:i + 1])
+                        for i in range(n)),
+                    lambda: fn(x, y, inf, bits), k3_shape(lanes))
+        ex, ey = x[8:8 + len(edge_scal)], y[8:8 + len(edge_scal)]
+        check_kernel(torch, kern, f"K3 scalar_mul_{g} {len(edge_scal)} edge lanes",
+                     lambda: fn(ex, ey, einf, ebits),
+                     lambda: points.pt_scalar_mul_bits(F, (ex, ey), einf, ebits),
+                     0, 0, time_it=False, raw_only=True)
 
     # K2: Jacobian inputs from K3's plain outputs (random Z, lane 0 and 5/7
     # at infinity) with one lane at Z = 1; then the edge lanes. Its Fp
@@ -992,11 +1142,36 @@ def oracle_msm(pts, r, skip):
     return acc
 
 
+def horner_edge_windows(torch):
+    """Window sums (X, Y, Z) [256, 2, 48] on which K7 takes every leg of
+    the complete addition: T[15] = aG and T[14] = 16aG (acc == T[14]: the
+    doubling), T[13] = -512aG (acc == -T[13]: Z3 = 0), T[12] at infinity
+    onto the accumulator at infinity, T[11] onto it, T[10] at infinity
+    (acc kept), T[9] == T[8]. The windows at infinity keep a point's X and
+    Y under Z = 0; lanes 16-255 are zero."""
+    from lighthouse_tpu_torch.crypto.bls.curve import g2_generator
+    from lighthouse_tpu_torch.ops import points
+
+    g, a = g2_generator(), 3
+    pts = [g.mul(11 + w) for w in range(16)]
+    pts[15], pts[14], pts[13] = g.mul(a), g.mul(16 * a), g.mul(512 * a).neg()
+    pts[11] = g.mul(5)
+    pts[9] = pts[8] = g.mul(7)
+    x, y, _ = points.g2_to_dev(pts)
+    J = points.pt_from_affine(points.FP2_OPS, torch.from_numpy(x), torch.from_numpy(y))
+    T = tuple(torch.zeros(256, 2, 48, dtype=torch.int32) for _ in range(3))
+    for t, v in zip(T, J):
+        t[:16] = v
+    T[2][[10, 12]] = 0
+    return T
+
+
 def check_msm_kernels(torch, np, sets) -> dict:
     """K5, K6 and K7 against their plain versions on the card at the main
     path's shapes (the batch's 128 signatures, seeded scalars, L = 48), on
-    every lane after canonical (K7 on its one lane); then on the edge batch
-    and with every set skipped; the MSM point against the scan (K3 G2, the
+    every lane after canonical (K7 raw on its one lane); then on the edge
+    batch, with every set skipped, and K7 on the edge windows; the MSM
+    point against the scan (K3 G2, the
     S-leaf tree) at canonical affine after K2, and against the oracle's
     sum_i r_i S_i on a subset of 8 sets. Returns {kernel name: entry}."""
     from lighthouse_tpu_torch.crypto.bls.constants import P
@@ -1031,7 +1206,9 @@ def check_msm_kernels(torch, np, sets) -> dict:
     out[msm.K7.name] = check_kernel(
         torch, msm.K7, "K7 msm_horner lane 0",
         lambda: msm.horner(T), lambda: msm.horner_plain(T),
-        work["msm_horner"], 16 * 3 * 384 + 3 * 384)
+        work["msm_horner"], 16 * 3 * 384 + 3 * 384, raw_only=True)
+    warp_report(torch, out[msm.K7.name], "K7", horner_rounds(c, work["msm_horner"]),
+                work["msm_horner"], lambda: msm.horner(T))
     log(f"K5 schedule at S={n}: L={L}, points per bucket max "
         f"{int(valid.sum(0).max())}, mean {valid.sum(0).mean():.2f}")
 
@@ -1061,7 +1238,8 @@ def check_msm_kernels(torch, np, sets) -> dict:
                      lambda: msm.tree_plain(EB), 0, 0, time_it=False)
         ET = msm.tree_plain(EB)
         check_kernel(torch, msm.K7, f"K7 {label}", lambda: msm.horner(ET),
-                     lambda: msm.horner_plain(ET), 0, 0, time_it=False)
+                     lambda: msm.horner_plain(ET), 0, 0, time_it=False,
+                     raw_only=True)
         ax, ay, ainf = tc.to_affine_g2(tuple(t[None] for t in msm.msm_g2(ex, ey, ei, ev)))
         if skip is not None:
             (pt,) = points.g2_from_dev(ax, ay, ainf)
@@ -1070,6 +1248,9 @@ def check_msm_kernels(torch, np, sets) -> dict:
             log(f"MSM ({label}) equals the oracle's sum r_i S_i")
     if not bool(ainf[0]):
         raise AssertionError("MSM with every set skipped is not infinity")
+    WT = tuple(t.to(dev) for t in horner_edge_windows(torch))
+    check_kernel(torch, msm.K7, "K7 edge windows", lambda: msm.horner(WT),
+                 lambda: msm.horner_plain(WT), 0, 0, time_it=False, raw_only=True)
     return out
 
 
@@ -1108,6 +1289,10 @@ def msm_against_scan(torch, np, sets, n: int) -> dict:
     b = tc.to_affine_g2(tuple(t[None] for t in run_scan()))
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
         raise AssertionError(f"MSM != scan at S={n}")
+    got = tc.scalar_mul_g2(sx, sy, none, bits)
+    if not all(torch.equal(x, y) for x, y in zip(
+            got, points.pt_scalar_mul_bits(points.FP2_OPS, (sx, sy), none, bits))):
+        raise AssertionError(f"K3 G2 != pt_scalar_mul_bits in its raw limbs at {n} lanes")
     B = msm.accumulate(sx, sy, ti, tv)
     res = {
         "S": n, "L": L, "bucket_max": int(valid.sum(0).max()),
@@ -1118,9 +1303,12 @@ def msm_against_scan(torch, np, sets, n: int) -> dict:
         "scan_ms": median_ms(torch, run_scan, KERNEL_REPS, warmup=1),
         "k3_g2_ms": median_ms(torch, lambda: tc.scalar_mul_g2(sx, sy, none, bits),
                               KERNEL_REPS, warmup=1),
+        "k3_g2_device_ms": device_ms(torch, lambda: tc.scalar_mul_g2(sx, sy, none, bits),
+                                     DEVICE_REPS, warmup=1),
     }
     log(f"MSM vs scan at S={n} (kernel-only, CUDA events, median of "
-        f"{KERNEL_REPS}), equal at canonical affine: {json.dumps(res)}")
+        f"{KERNEL_REPS}; K3 G2 also device-only), equal at canonical affine, "
+        f"K3 G2 raw-equal to its plain version: {json.dumps(res)}")
     return res
 
 
@@ -1372,6 +1560,7 @@ def main() -> int:
         fused = check_fused_kernels(torch, np, sets, hashes)
         fused.update(check_msm_kernels(torch, np, sets))
         wide = msm_against_scan(torch, np, sets, 2048)
+        sweep = k3_lane_sweep(torch, np, sets)
         fused.update(check_hash_kernels(torch, np, sets, hashes))
     clock_mhz = gpu.summary["sm_clock_mhz_max"]
     int_rate = INT_MADS_PER_CLOCK * clock_mhz * 1e6
@@ -1484,6 +1673,10 @@ def main() -> int:
     log(f"MSM against the scan at S={wide['S']}: MSM {wide['msm_ms']:.4f} ms "
         f"(K5 {wide['k5_ms']:.4f}, K6 {wide['k6_ms']:.4f}, K7 {wide['k7_ms']:.4f}), "
         f"scan {wide['scan_ms']:.4f} ms (K3 G2 {wide['k3_g2_ms']:.4f})")
+    log("K3 device-only ms at n lanes, one warp per lane / packed (the "
+        "launch's lanes per warp): " + ", ".join(
+            f"{k} {v['one_warp']['device_ms']:.4f} / {v['packed']['device_ms']:.4f} "
+            f"({v['lanes_per_warp']})" for k, v in sweep.items()))
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -32,8 +32,8 @@
 // doubling, 6 per addition). Every product is fp.cuh's carry-chain fp_mul.
 // The data-dependent conditions are uniform in each group and stay
 // branches. No block-wide barrier: a round ends in __syncwarp over its
-// group. K13 runs a u per half-warp (two per block), K14 a point per warp,
-// on the same bodies.
+// group (warp_curve.cuh, whose group law K3 and K7 share). K13 runs a u
+// per half-warp (two per block), K14 a point per warp, on the same bodies.
 
 #include <cuda_runtime.h>
 
@@ -44,8 +44,7 @@ namespace {
 
 using namespace bls;
 
-constexpr int W = 2 * kWords;                     // int4 per Fp2 value
-constexpr int kSlots = kWarpThreads * kSlotVecs;  // uint4 of a warp's slots
+constexpr int W = 2 * kWords;  // int4 per Fp2 value
 
 __device__ __forceinline__ void store_jac(int4* __restrict__ X,
                                           int4* __restrict__ Y,
@@ -56,17 +55,9 @@ __device__ __forceinline__ void store_jac(int4* __restrict__ X,
   store(Z + i * W, P.Z);
 }
 
-// This thread's half-warp (threads 0-15, 16-31) and the whole warp.
+// This thread's half-warp (threads 0-15, 16-31).
 __device__ __forceinline__ int half_index() {
   return threadIdx.x / kHalfThreads;
-}
-__device__ __forceinline__ Group<kHalfThreads> half_group(uint4* slots) {
-  const int h = half_index();
-  return {(int)(threadIdx.x % kHalfThreads), 0xffffu << (kHalfThreads * h),
-          slots + h * kHalfThreads * kSlotVecs};
-}
-__device__ __forceinline__ Group<kWarpThreads> warp_group(uint4* slots) {
-  return {(int)threadIdx.x, 0xffffffffu, slots};
 }
 
 // One message per block: u-half h on half-warp h, then Q0 + Q1 and the
@@ -74,13 +65,13 @@ __device__ __forceinline__ Group<kWarpThreads> warp_group(uint4* slots) {
 __global__ void __launch_bounds__(kWarpThreads)
     map_to_g2_kernel(const int4* __restrict__ us, int4* __restrict__ X,
                      int4* __restrict__ Y, int4* __restrict__ Z) {
-  __shared__ uint4 slots[kSlots];
+  __shared__ uint4 slots[kWarpSlots];
   __shared__ Jac<Fp2> halves[2];
   const long long i = blockIdx.x;
   const int h = half_index();
   Fp2 u;
   load(u, us + (i * 2 + h) * W);
-  const Jac<Fp2> Q = sswu_iso(half_group(slots), u);
+  const Jac<Fp2> Q = sswu_iso(sub_group<kHalfThreads>(slots), u);
   if (threadIdx.x % kHalfThreads == 0) halves[h] = Q;
   __syncwarp();
   const Group<kWarpThreads> G = warp_group(slots);
@@ -92,12 +83,12 @@ __global__ void __launch_bounds__(kWarpThreads)
 __global__ void __launch_bounds__(kWarpThreads)
     sswu_iso_kernel(const int4* __restrict__ u, int4* __restrict__ X,
                     int4* __restrict__ Y, int4* __restrict__ Z, long long n) {
-  __shared__ uint4 slots[kSlots];
+  __shared__ uint4 slots[kWarpSlots];
   const long long i = (long long)blockIdx.x * 2 + half_index();
   if (i >= n) return;  // n odd: the last block's second half-warp has no u
   Fp2 a;
   load(a, u + i * W);
-  const Jac<Fp2> P = sswu_iso(half_group(slots), a);
+  const Jac<Fp2> P = sswu_iso(sub_group<kHalfThreads>(slots), a);
   if (threadIdx.x % kHalfThreads == 0) store_jac(X, Y, Z, i, P);
 }
 
@@ -106,7 +97,7 @@ __global__ void __launch_bounds__(kWarpThreads)
     cofactor_kernel(const int4* __restrict__ X, const int4* __restrict__ Y,
                     const int4* __restrict__ Z, int4* __restrict__ oX,
                     int4* __restrict__ oY, int4* __restrict__ oZ) {
-  __shared__ uint4 slots[kSlots];
+  __shared__ uint4 slots[kWarpSlots];
   const long long i = blockIdx.x;
   Jac<Fp2> P;
   load(P.X, X + i * W);

@@ -1,29 +1,23 @@
 // Hash-to-G2 bodies of kernels K12-K14 (sm_90a), run by a group of threads
-// of one warp: the Fp2 power over the sqrt_ratio exponent, sqrt_ratio,
-// sgn0, the SSWU + 3-isogeny body, and the cofactor body by two |x| walks
-// with its complete addition and doubling.
+// of one warp (warp_curve.cuh Group, Round): the Fp2 power over the
+// sqrt_ratio exponent, sqrt_ratio, sgn0, the SSWU + 3-isogeny body, and the
+// cofactor body by two |x| walks with warp_curve.cuh's group law.
 //
 // A group is the 16 threads of a half-warp (one u through SSWU + isogeny)
-// or the whole warp (Q0 + Q1 and the cofactor). Every thread of a group
-// holds every value of the chain and runs its additions; the Fp products
-// that the chain can run side by side (the three Karatsuba products of an
-// Fp2 product, the two of a square, the independent products of a point
-// operation or an isogeny step) form a round, dealt out one per thread into
-// the group's slots in shared memory, and every thread reads the round's
-// results back after a __syncwarp over the group. So a condition on the
-// chain's values (sqrt_ratio's first hit, tv2 == 0, is_sq, sgn0, a point at
-// infinity, P == Q) is the same in every thread of the group and stays a
-// branch that computes only the leg it keeps; where the two halves of a
-// warp take different legs, the warp runs them one after the other. The
-// bits of the exponents are constants, the same for the whole warp.
+// or the whole warp (Q0 + Q1 and the cofactor). The products of an isogeny
+// step or of sqrt_ratio's set-up go side by side in a round as those of a
+// point operation do. A condition on the chain's values (sqrt_ratio's first
+// hit, tv2 == 0, is_sq, sgn0) is the same in every thread of the group and
+// stays a branch; where the two halves of a warp take different legs, the
+// warp runs them one after the other. The bits of the exponents are
+// constants, the same for the whole warp.
 //
 // Each function follows its plain version op for op on the lazy [0, 2p)
 // values of fp.cuh (a product computed once where the plain version
 // computes it twice gives the same limbs), so a kernel's limbs equal the
 // plain version's: the SSWU + isogeny chain is that of ops/htc.py
 // (sqrt_ratio, fp2_sgn0, sswu_fq2, iso3_jacobian, psi_jacobian), the
-// cofactor that of ops/tkernel_htc.py (cofactor_plain), the Fp2 products of
-// tower.cuh and the group law of curve.cuh (pt_double, pt_add).
+// cofactor that of ops/tkernel_htc.py (cofactor_plain).
 //
 // The constants are Montgomery-form words, [c0, c1] per Fp2 element
 // (ops/htc.py A_DEV, B_DEV, Z_DEV, C_Z_DEV, SQRT_CANDS_DEV, ISO_*); a CPU
@@ -31,7 +25,7 @@
 
 #pragma once
 
-#include "curve.cuh"
+#include "warp_curve.cuh"
 
 namespace bls {
 
@@ -209,114 +203,6 @@ __device__ __forceinline__ bool sqrt_ratio_e_bit(int i) {
 
 // Threads per half-warp group: one u of the SSWU + isogeny body.
 constexpr int kHalfThreads = 16;
-constexpr int kSlotVecs = kWords / 4;  // uint4 per Fp product slot
-
-// The threads that run one chain: this thread's index in the group, the
-// group's lanes of the warp, and its kSize product slots in shared memory.
-template <int kSize>
-struct Group {
-  int g;
-  unsigned mask;
-  uint4* slots;
-};
-
-__device__ __forceinline__ void store_slot(uint4* slots, int s, const Fp& v) {
-  uint4* d = slots + s * kSlotVecs;
-#pragma unroll
-  for (int k = 0; k < kSlotVecs; ++k)
-    d[k] = make_uint4(v.w[4 * k], v.w[4 * k + 1], v.w[4 * k + 2], v.w[4 * k + 3]);
-}
-
-__device__ __forceinline__ Fp load_slot(const uint4* slots, int s) {
-  const uint4* d = slots + s * kSlotVecs;
-  Fp v;
-#pragma unroll
-  for (int k = 0; k < kSlotVecs; ++k) {
-    const uint4 q = d[k];
-    v.w[4 * k] = q.x;
-    v.w[4 * k + 1] = q.y;
-    v.w[4 * k + 2] = q.z;
-    v.w[4 * k + 3] = q.w;
-  }
-  return v;
-}
-
-// Handles of a round's results: the slots of one Fp product, of an Fp2
-// product's three Karatsuba products, of an Fp2 square's two.
-struct ProdSlot { int s; };
-struct MulSlot { int s; };
-struct SqrSlot { int s; };
-
-// One round: the Fp products declared on it go, in order, to threads 0, 1,
-// ... of the group (at most kSize of them), run side by side, and land in
-// the group's slots. A round is declared, run, and read before the next
-// one runs (its first __syncwarp waits for the reads of the one before).
-template <int kSize>
-struct Round {
-  const Group<kSize>& G;
-  int n = 0;
-  Fp x, y;  // this thread's operands
-
-  __device__ __forceinline__ explicit Round(const Group<kSize>& grp) : G(grp) {}
-
-  __device__ __forceinline__ ProdSlot prod(const Fp& a, const Fp& b) {
-    if (G.g == n) {
-      x = a;
-      y = b;
-    }
-    return {n++};
-  }
-  // tower.cuh mul: t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 + b1)
-  __device__ __forceinline__ MulSlot mul(const Fp2& a, const Fp2& b) {
-    const int s = prod(a.c0, b.c0).s;
-    prod(a.c1, b.c1);
-    prod(add(a.c0, a.c1), add(b.c0, b.c1));
-    return {s};
-  }
-  // tower.cuh sqr: (a0 + a1)(a0 - a1), a0 a1
-  __device__ __forceinline__ SqrSlot sqr(const Fp2& a) {
-    const int s = prod(add(a.c0, a.c1), sub(a.c0, a.c1)).s;
-    prod(a.c0, a.c1);
-    return {s};
-  }
-
-  __device__ __forceinline__ void run() {
-    if (n > kSize) __trap();  // a round wider than its group
-    __syncwarp(G.mask);
-    if (G.g < n) store_slot(G.slots, G.g, bls::mul(x, y));
-    __syncwarp(G.mask);
-  }
-
-  __device__ __forceinline__ Fp get(ProdSlot h) const {
-    return load_slot(G.slots, h.s);
-  }
-  __device__ __forceinline__ Fp2 get(MulSlot h) const {
-    const Fp t0 = load_slot(G.slots, h.s);
-    const Fp t1 = load_slot(G.slots, h.s + 1);
-    const Fp t2 = load_slot(G.slots, h.s + 2);
-    return {sub(t0, t1), sub(sub(t2, t0), t1)};
-  }
-  __device__ __forceinline__ Fp2 get(SqrSlot h) const {
-    return {load_slot(G.slots, h.s), dbl(load_slot(G.slots, h.s + 1))};
-  }
-};
-
-// A round of one Fp2 product or square.
-template <int S>
-__device__ __forceinline__ Fp2 mul(const Group<S>& G, const Fp2& a,
-                                   const Fp2& b) {
-  Round<S> r(G);
-  const MulSlot h = r.mul(a, b);
-  r.run();
-  return r.get(h);
-}
-template <int S>
-__device__ __forceinline__ Fp2 sqr(const Group<S>& G, const Fp2& a) {
-  Round<S> r(G);
-  const SqrSlot h = r.sqr(a);
-  r.run();
-  return r.get(h);
-}
 
 // -------------------------------------------------------------- SSWU
 
@@ -570,124 +456,6 @@ __device__ __noinline__ Jac<Fp2> sswu_iso(const Group<S>& G, const Fp2& u) {
 }
 
 // ----------------------------------------------------------- cofactor
-
-// curve.cuh pt_double, its products in four rounds.
-template <int S>
-__device__ __noinline__ Jac<Fp2> pt_double(const Group<S>& G,
-                                           const Jac<Fp2>& P) {
-  Fp2 A, B, Zh, C, Sq;
-  {
-    Round<S> r(G);
-    const SqrSlot h1 = r.sqr(P.X), h2 = r.sqr(P.Y);
-    const MulSlot h3 = r.mul(P.Y, P.Z);
-    r.run();
-    A = r.get(h1);
-    B = r.get(h2);
-    Zh = r.get(h3);
-  }
-  {
-    Round<S> r(G);
-    const SqrSlot h1 = r.sqr(B), h2 = r.sqr(add(P.X, B));
-    r.run();
-    C = r.get(h1);
-    Sq = r.get(h2);
-  }
-  const Fp2 D = dbl(sub(sub(Sq, A), C));
-  const Fp2 E = triple(A);
-  const Fp2 X3 = sub(sqr(G, E), dbl(D));
-  const Fp2 Y3 = sub(mul(G, E, sub(D, X3)), dbl(dbl(dbl(C))));
-  return {X3, Y3, dbl(Zh)};
-}
-
-// curve.cuh pt_add, the complete addition with its case order (P at
-// infinity -> Q, Q at infinity -> P, P == Q -> the doubling, P == -Q ->
-// Z3 = 0), its products in six rounds.
-template <int S>
-__device__ __noinline__ Jac<Fp2> pt_add(const Group<S>& G, const Jac<Fp2>& P,
-                                        const Jac<Fp2>& Q) {
-  if (is_zero(P.Z)) return Q;
-  if (is_zero(Q.Z)) return P;
-  Fp2 Z1Z1, Z2Z2, U1, U2, T1, T2, S1, S2;
-  {
-    Round<S> r(G);
-    const SqrSlot h1 = r.sqr(P.Z), h2 = r.sqr(Q.Z);
-    r.run();
-    Z1Z1 = r.get(h1);
-    Z2Z2 = r.get(h2);
-  }
-  {
-    Round<S> r(G);
-    const MulSlot h1 = r.mul(P.X, Z2Z2), h2 = r.mul(Q.X, Z1Z1);
-    const MulSlot h3 = r.mul(Q.Z, Z2Z2), h4 = r.mul(P.Z, Z1Z1);
-    r.run();
-    U1 = r.get(h1);
-    U2 = r.get(h2);
-    T1 = r.get(h3);
-    T2 = r.get(h4);
-  }
-  {
-    Round<S> r(G);
-    const MulSlot h1 = r.mul(P.Y, T1), h2 = r.mul(Q.Y, T2);
-    r.run();
-    S1 = r.get(h1);
-    S2 = r.get(h2);
-  }
-  const Fp2 H = sub(U2, U1);
-  const Fp2 rr0 = dbl(sub(S2, S1));
-  if (is_zero(H) && is_zero(rr0)) return pt_double(G, P);
-  Fp2 I, rr, ZS, J, V, Z3;
-  {
-    Round<S> r(G);
-    const SqrSlot h1 = r.sqr(dbl(H)), h2 = r.sqr(rr0), h3 = r.sqr(add(P.Z, Q.Z));
-    r.run();
-    I = r.get(h1);
-    rr = r.get(h2);
-    ZS = r.get(h3);
-  }
-  {
-    Round<S> r(G);
-    const MulSlot h1 = r.mul(H, I), h2 = r.mul(U1, I);
-    const MulSlot h3 = r.mul(sub(sub(ZS, Z1Z1), Z2Z2), H);
-    r.run();
-    J = r.get(h1);
-    V = r.get(h2);
-    Z3 = r.get(h3);
-  }
-  const Fp2 X3 = sub(sub(rr, J), dbl(V));
-  Fp2 M, SJ;
-  {
-    Round<S> r(G);
-    const MulSlot h1 = r.mul(rr0, sub(V, X3)), h2 = r.mul(S1, J);
-    r.run();
-    M = r.get(h1);
-    SJ = r.get(h2);
-  }
-  return {X3, sub(M, dbl(SJ)), Z3};
-}
-
-// psi on Jacobian coordinates (ops/htc.py psi_jacobian).
-template <int S>
-__device__ __forceinline__ Jac<Fp2> psi(const Group<S>& G,
-                                        const Jac<Fp2>& P) {
-  Round<S> r(G);
-  const MulSlot hx = r.mul(conj(P.X), fp2_const(kPsiCx));
-  const MulSlot hy = r.mul(conj(P.Y), fp2_const(kPsiCy));
-  r.run();
-  return {r.get(hx), r.get(hy), conj(P.Z)};
-}
-
-// [|x|]Q: Q for the leading one, then per bit a doubling and, on a one
-// bit, a complete addition of Q (ops/tkernel_htc.py _x_walk).
-template <int S>
-__device__ __noinline__ Jac<Fp2> x_walk(const Group<S>& G, const Jac<Fp2>& Q) {
-  Jac<Fp2> acc = Q;
-#pragma unroll 1
-  for (int b = kXTopBit - 1; b >= 0; --b) {
-    acc = pt_double(G, acc);
-    if (x_bit(b)) acc = pt_add(G, acc, Q);
-  }
-  return acc;
-}
 
 // h_eff Q = t2 + t - Q - psi(t + Q) + psi^2(2Q), t = [|x|]Q, t2 = [|x|]t
 // (ops/tkernel_htc.py cofactor_plain; x < 0 gives the signs).

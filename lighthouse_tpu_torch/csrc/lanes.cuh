@@ -10,9 +10,12 @@
 // widest round of a program (an Fp12 product's 54 Fp products, f^2 beside
 // the doubling step's first level, 45) takes one pass.
 //
-// One warp per lane (K12-K14; htc.cuh): one lane per block of one warp, its
-// independent Fp products side by side on groups of the warp's threads that
-// meet at __syncwarp.
+// Warp groups (K3, K7, K12-K14; warp_curve.cuh, htc.cuh): blocks of one
+// warp, a lane's independent Fp products side by side on a group of the
+// warp's threads that meets at __syncwarp. K7, K12 and K14 run one lane per
+// warp (K12's two u-halves on the two half-warps, then the whole warp), K13
+// a lane per half-warp, K3 one lane per warp up to one lane per SM and
+// past that 8 (G1) or 4 (G2) lanes per warp.
 //
 // Every entry point of the fused kernels is extern "C" and takes its
 // pointers first, then its int options, the lane count and the stream, and

@@ -7,8 +7,8 @@
 // through _f3_call (pallas_call at :269). Each computes what its plain
 // version in ops/msm.py computes, on the same 256-lane layout (bucket lane
 // = (digit - 1) * 16 + window, lanes 240-255 padding), with the group law of
-// curve.cuh, which follows ops/points.py case for case; the raw limbs equal
-// the plain versions'.
+// curve.cuh (K5, K6) or warp_curve.cuh (K7), which follow ops/points.py
+// case for case; the raw limbs equal the plain versions'.
 //
 // What bounds them on an H100: integer multiplies in dependent chains. At
 // S = 128 sets K5 runs L = 48 rounds, of which a bucket holds ~8 points on
@@ -18,15 +18,18 @@
 // products). The bytes (the signatures gathered, the [L, 240] schedule, 256
 // Jacobian points in and out) are tens of kilobytes.
 //
-// What the design does about it: one thread per bucket lane. K5 gathers
-// its points from the int32 schedule itself (no [L, 240] copy of the
-// points); K6 is one block of 256 threads that trade their lanes through
-// 72 KiB of shared memory between the eight shift-add steps; K7 is one
-// thread, the lane-0 chain the reference reads. Spreading a lane's
-// arithmetic over a warp is later work.
+// What the design does about it: K5 and K6 run one thread per bucket lane.
+// K5 gathers its points from the int32 schedule itself (no [L, 240] copy of
+// the points); K6 is one block of 256 threads that trade their lanes
+// through 72 KiB of shared memory between the eight shift-add steps. K7,
+// the one lane-0 chain the reference reads, runs on one warp with
+// warp_curve.cuh's group law: a doubling's products in 4 rounds, an
+// addition's in 6, each round's independent Fp2 products one per thread,
+// meeting at __syncwarp; 330 rounds where one thread ran ~1,600 products in
+// a row. The windows keep the plain version's Horner order (its 60
+// doublings stay on the chain either way, and the limbs stay its limbs).
 
-#include "curve.cuh"
-#include "lanes.cuh"
+#include "warp_curve.cuh"
 
 namespace {
 
@@ -114,20 +117,22 @@ __global__ void __launch_bounds__(kLanes, 1)
 }
 
 // K7: acc = T[15]; for w = 14 .. 0: four doublings, then acc + T[w] (the
-// reference's rotations put T[w] in lane 0 at window w). One thread.
-__global__ void __launch_bounds__(32)
+// reference's rotations put T[w] in lane 0 at window w). One block of one
+// warp: the warp group law of warp_curve.cuh.
+__global__ void __launch_bounds__(kWarpThreads)
     msm_horner_kernel(const int4* __restrict__ tX, const int4* __restrict__ tY,
                       const int4* __restrict__ tZ, int4* __restrict__ oX,
                       int4* __restrict__ oY, int4* __restrict__ oZ) {
-  if (threadIdx.x != 0) return;
+  __shared__ uint4 slots[kWarpSlots];
+  const Group<kWarpThreads> G = warp_group(slots);
   Jac<Fp2> acc = load_point(tX, tY, tZ, kWindows - 1);
 #pragma unroll 1
   for (int w = kWindows - 2; w >= 0; --w) {
 #pragma unroll 1
-    for (int k = 0; k < kWindowBits; ++k) acc = pt_double(acc);
-    acc = pt_add(acc, load_point(tX, tY, tZ, w));
+    for (int k = 0; k < kWindowBits; ++k) acc = pt_double(G, acc);
+    acc = pt_add(G, acc, load_point(tX, tY, tZ, w));
   }
-  store_point(oX, oY, oZ, 0, acc);
+  if (threadIdx.x == 0) store_point(oX, oY, oZ, 0, acc);
 }
 
 constexpr int kTreeSmem = kLanes * (int)sizeof(Jac<Fp2>);  // 72 KiB
@@ -167,7 +172,7 @@ extern "C" int lh_msm_horner(const void* tX, const void* tY, const void* tZ,
                              void* oX, void* oY, void* oZ, long long n,
                              void* stream) {
   if (n != kLanes) return (int)cudaErrorInvalidValue;
-  msm_horner_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+  msm_horner_kernel<<<1, kWarpThreads, 0, (cudaStream_t)stream>>>(
       (const int4*)tX, (const int4*)tY, (const int4*)tZ, (int4*)oX, (int4*)oY,
       (int4*)oZ);
   return (int)cudaGetLastError();

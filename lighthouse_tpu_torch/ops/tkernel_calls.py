@@ -5,9 +5,12 @@ Counterpart of ``lighthouse_tpu/ops/tkernel_calls.py``, whose Pallas kernels
 each run one long sequential chain of the verify (affine normalisation,
 RLC scalar multiplication, subgroup check, Miller loop, final
 exponentiation) as one program. Here each is a CUDA kernel under
-``lighthouse_tpu_torch/csrc/`` that runs the chain one lane per thread, or,
-for K8 and K10, one lane per block: the block runs the straight-line
-programs of ``ops/coop.py``, which the wrapper hands it.
+``lighthouse_tpu_torch/csrc/`` that runs the chain one lane per thread; K3
+runs a lane on a group of a warp's threads with the warp group law of
+``csrc/warp_curve.cuh`` (the whole warp up to one lane per SM, 8 G1 or 4
+G2 lanes per warp past that), and K8 and K10 one lane per block: the block
+runs the straight-line programs of ``ops/coop.py``, which the wrapper
+hands it.
 
 Every wrapper takes the port's batch-major tensors, with one leading lane
 axis: Fp ``int32[n, 48]``, Fp2 ``[n, 2, 48]``, Fp12 ``[n, 2, 3, 2, 48]``,

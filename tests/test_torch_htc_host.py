@@ -242,9 +242,12 @@ def test_sswu_iso_and_cofactor_warp_bodies_match_plain(host_lib, edge_us):
 
 def test_hash_kernels_meet_only_within_a_warp():
     """K12-K14 are one warp per block and synchronise only with
-    __syncwarp over a group; no block-wide barrier and no coop.cuh program
-    on their path. The wrapper's launch shape is the sources'."""
-    text = (CSRC / "htc.cu").read_text() + (CSRC / "htc.cuh").read_text()
+    __syncwarp over a group (htc.cuh on warp_curve.cuh's groups and group
+    law); no block-wide barrier and no coop.cuh program on their path. The
+    wrapper's launch shape is the sources'."""
+    text = "".join((CSRC / name).read_text()
+                   for name in ("htc.cu", "htc.cuh", "warp_curve.cuh"))
+    assert '#include "warp_curve.cuh"' in text
     assert "__syncthreads" not in text and "coop" not in text
     assert "__syncwarp" in text
     warp = int(re.search(r"kWarpThreads = (\d+);", (CSRC / "lanes.cuh").read_text()).group(1))

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import horner_edge_windows
 from lighthouse_tpu_torch.crypto.bls.constants import P
 from lighthouse_tpu_torch.crypto.bls.constants import R as ORDER
 from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator, g2_infinity
@@ -142,9 +143,9 @@ def test_aligned_operand_is_used_as_it_is():
 # ------------------------------------------------------ the fused kernels
 # Each fused kernel (ops/tkernel_calls.py) against its plain version on the
 # same CUDA tensors, at small shapes with the edge lanes of the verify path:
-# infinity, Z = 1, scalars 0, 1 and 2^64 - 1, points outside G2. Raw limbs
-# must be equal (the CUDA tower follows ops/tower.py op for op), which
-# implies equality after canonical.
+# infinity, Z = 1, scalars 0, 1, 2^64 - 1 and a single one bit, points outside
+# G2. Raw limbs must be equal (the CUDA tower follows ops/tower.py op for op),
+# which implies equality after canonical.
 
 SCALARS = [0, 1, (1 << 64) - 1, 0x9E3779B97F4A7C15]
 
@@ -171,9 +172,9 @@ def _same(got, want):
 def test_scalar_mul_and_to_affine_kernels_match_plain(group):
     _card()
     gen, F, pack, k3 = _group(group)
-    x, y, inf = _cuda(*pack([gen.mul(k) for k in (2, 3, 5, 7, 11)]))
-    inf[4] = True
-    bits = _cuda(points.scalars_to_bits(SCALARS + [5], 64))[0]
+    x, y, inf = _cuda(*pack([gen.mul(k) for k in (2, 3, 5, 7, 11, 13, 17)]))
+    inf[4] = inf[6] = True  # bases at infinity, under 5 and 2^64 - 1
+    bits = _cuda(points.scalars_to_bits(SCALARS + [5, 1 << 40, (1 << 64) - 1], 64))[0]
     mul = tc.scalar_mul_g1 if group == "g1" else tc.scalar_mul_g2
     before = k3.launches
     J = mul(x, y, inf, bits)
@@ -184,7 +185,31 @@ def test_scalar_mul_and_to_affine_kernels_match_plain(group):
     aff = tc.to_affine_g1 if group == "g1" else tc.to_affine_g2
     got = aff(J)
     assert _same(got, points.pt_to_affine(F, J))
-    assert got[2].tolist() == [True, False, False, False, True]  # [0]Q, inf
+    assert got[2].tolist() == [True, False, False, False, True, False, True]  # [0]Q, inf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_scalar_mul_kernel_packs_lanes_past_the_sms(group):
+    """K3 on more lanes than the card has SMs, where its launch packs
+    several lanes into a warp: raw limbs of pt_scalar_mul_bits on seeded
+    scalars with the edge lanes among them, and a ragged last warp."""
+    _card()
+    gen, F, pack, k3 = _group(group)
+    n = torch.cuda.get_device_properties(0).multi_processor_count + 3
+    x, y, inf = _cuda(*pack([gen.mul(k) for k in range(2, 9)]))
+    rows = torch.arange(n, device="cuda") % 7
+    x, y, inf = x[rows], y[rows], inf[rows]
+    inf[5] = True  # a base at infinity under 2^64 - 1
+    rng = np.random.default_rng(11)
+    scal = [int(k) for k in rng.integers(0, 1 << 64, n, dtype=np.uint64)]
+    scal[:8] = SCALARS + [5, 1 << 40, (1 << 64) - 1, 1 << 63]
+    bits = _cuda(points.scalars_to_bits(scal, 64))[0]
+    mul = tc.scalar_mul_g1 if group == "g1" else tc.scalar_mul_g2
+    before = k3.launches
+    J = mul(x, y, inf, bits)
+    assert k3.launches == before + 1
+    assert _same(J, points.pt_scalar_mul_bits(F, (x, y), inf, bits))
 
 
 @pytest.mark.cuda
@@ -334,7 +359,8 @@ def test_subgroup_full_kernel_matches_plain_and_fast():
 # K5 (accumulate), K6 (tree) and K7 (Horner) against their plain versions on
 # 8 sets with the edge cases: a duplicate signature whose mixed addition
 # doubles, S and -S cancelling in a bucket before a further addition, empty
-# buckets, a skipped set; and with every set skipped.
+# buckets, a skipped set; and with every set skipped. K7 also on windows
+# that take every leg of the complete addition.
 
 MSM_R = np.array([
     0x1234567890ABCDE5, 0x0FEDCBA987654325, 0x1111111111111171,
@@ -370,6 +396,18 @@ def test_msm_kernels_match_plain_and_oracle(skipped):
         if not sk:
             want = want.add(p.mul(int(k)))
     assert points.g2_from_dev(x, y, inf) == [want]
+
+
+@pytest.mark.cuda
+def test_horner_kernel_edge_windows():
+    """K7 raw-equal to horner_plain on windows that take every leg of the
+    complete addition."""
+    _card()
+    T = tuple(c.cuda() for c in horner_edge_windows(torch))
+    before = msm.K7.launches
+    got = msm.horner(T)
+    assert msm.K7.launches == before + 1
+    assert _same(got, msm.horner_plain(T))
 
 
 # ------------------------------------------------- constants in the sources
