@@ -24,15 +24,21 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    ``canonical`` (and whether the raw limbs match; K2, K3, K8 and K10 must
    match raw), its time per call and device-only (K2 also its host
    enqueue),
-   K4 also against K15, the final-exponentiation chain also against the
-   classic ``pairing.final_exponentiation``; kernel and plain times; for K8
-   and K10 the product and add rounds per lane of their ``ops/coop.py``
-   programs, their shared memory and the time per round; for K3 (a lane on
-   a group of a warp's threads on ``csrc/warp_curve.cuh``: the whole warp
-   up to one lane per SM, packed past that) its launch shape, its rounds
-   per lane, counted from the bits, and the time per round; then K3 G1 and
-   G2 at 128, 256, 512 and 2048 lanes in both shapes, raw-equal and
-   device-only, beside the shape the launch takes;
+   K4 also against K15, K9 also raw against its ``ops/coop.py`` plan's
+   model (the divstep inversion's representative; against its plain
+   version after canonical), the chain from K10 on raw against the plain
+   chain on the plain K9's output, and the whole final-exponentiation chain
+   against the plain chain and the classic ``pairing.final_exponentiation``
+   after canonical; kernel and plain times; for K8-K10 the product and add
+   rounds per lane of their ``ops/coop.py`` programs, their shared memory
+   and the time per round; for K3 and K4 (a lane on a group of a warp's
+   threads on ``csrc/warp_curve.cuh``: the whole warp up to one lane per
+   SM, packed past that; K4 one thread per lane past a few packed warps per
+   SM) the launch shape, the rounds per lane, counted from the bits, and
+   the time per round; then K3 G1 and G2 at 128, 256, 512 and 2048 lanes in
+   both shapes, raw-equal and device-only, and K4 at 128-8192 lanes in its
+   three shapes, equal to its plain version and K15, device-only in three
+   alternating turns, each beside the shape the launch takes;
 5. the MSM kernels (K5 accumulate, K6 tree, K7 Horner, the last one warp on
    ``csrc/warp_curve.cuh``) against their plain versions at the main path's
    shapes (the batch's 128 signatures, a schedule from seeded scalars, L =
@@ -726,9 +732,13 @@ def k3_lanes_per_warp(tc, g2: bool, n: int) -> int:
     return lanes.value
 
 
-def k3_shape(lanes: int) -> str:
-    return ("one warp per lane, one lane per block of one warp" if lanes == 1 else
-            f"{lanes} lanes per block of one warp, {32 // lanes} threads per lane")
+def warp_shape(lanes: int) -> str:
+    """K3's or K4's launch shape at ``lanes`` lanes per warp."""
+    if lanes == 1:
+        return "one warp per lane, one lane per block of one warp"
+    if lanes == 32:
+        return "one thread per lane, 32 lanes per block of one warp"
+    return f"{lanes} lanes per block of one warp, {32 // lanes} threads per lane"
 
 
 def k3_shaped(torch, tc, g2: bool, lanes: int, x, y, inf, bits):
@@ -792,6 +802,124 @@ def k3_lane_sweep(torch, np, sets, sizes=(128, 256, 512, 2048)) -> dict:
             log(f"K3 {g} at {n} lanes (seeded 64-bit scalars), raw-equal to its "
                 f"plain version in both shapes; the launch takes {auto} per warp; "
                 f"device-only: {json.dumps(row)}")
+    return res
+
+
+# Rounds of K4 on a finite lane: 63 doublings, 5 mixed additions, and
+# psi with the comparison in 3 (csrc/subgroup_fast.cu).
+K4_ROUNDS = 63 * DBL_ROUNDS + 5 * ADD_ROUNDS + 3
+# K4's lanes per warp: one warp per lane, packed, one thread per lane.
+K4_SHAPES = {"one_warp": 1, "packed": 4, "one_thread": 32}
+
+
+def subgroup_fast_products(c: dict) -> int:
+    """K4's Fp products for one finite lane: 63 doublings, 5 mixed
+    additions, psi's 2 Fp2 products, Z^2, Z^3 and the two comparisons'."""
+    return (63 * c["dbl_g2"] + 5 * c["madd_g2"] + 2 * c["fp2_mul"] + c["fp2_sqr"]
+            + 3 * c["fp2_mul"])
+
+
+def k4_lanes(np, sets):
+    """K4's 128 lanes: 96 signatures in G2, 28 points on the curve outside
+    G2 (map_to_curve_g2 without cofactor clearing), 4 at infinity (a
+    signature's limbs under the flag). Returns (x, y, inf) numpy arrays."""
+    from lighthouse_tpu_torch.crypto.bls.fields import Fq2
+    from lighthouse_tpu_torch.crypto.bls.hash_to_curve import map_to_curve_g2
+    from lighthouse_tpu_torch.ops import points
+
+    pts = [s.signature.point for s in sets[:96]]
+    pts += [map_to_curve_g2(Fq2(s + 2, 3 * s + 1)) for s in range(28)]
+    pts += [s.signature.point for s in sets[124:128]]
+    x, y, inf = points.g2_to_dev(pts)
+    inf[124:] = True
+    return x, y, inf
+
+
+def k4_lanes_per_warp(tc, n: int) -> int:
+    """The lanes per warp that K4's launch takes for n lanes on this card."""
+    import ctypes
+
+    lanes = ctypes.c_int(0)
+    rc = tc.K4.library.load().lh_subgroup_fast_lanes_per_warp(
+        ctypes.c_longlong(n), ctypes.byref(lanes))
+    if rc:
+        raise RuntimeError(f"lh_subgroup_fast_lanes_per_warp: CUDA error {rc}")
+    return lanes.value
+
+
+def k4_shaped(torch, tc, lanes: int, x, y, inf):
+    """K4 at a given lanes per warp, through the library's
+    lh_subgroup_fast_shaped (not counted: the smoke's comparison of
+    shapes)."""
+    import ctypes
+
+    from lighthouse_tpu_torch.ops import _build
+
+    out = torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
+    rc = tc.K4.library.load().lh_subgroup_fast_shaped(
+        *(ctypes.c_void_p(t.data_ptr()) for t in (x, y, inf, out)),
+        ctypes.c_int(lanes), ctypes.c_longlong(x.shape[0]),
+        ctypes.c_void_p(_build.current_stream(x)))
+    if rc:
+        raise RuntimeError(f"lh_subgroup_fast_shaped({lanes}): CUDA error {rc}")
+    return out
+
+
+def k4_lane_sweep(torch, np, sets, sizes=(128, 256, 384, 512, 1024, 2048, 4096, 6144, 8192),
+                  turns: int = 3) -> dict:
+    """K4 at n lanes (k4_lanes repeated: 3/4 in G2, the rest outside G2 or
+    at infinity, as a verify of n sets with some bad signatures gives it) in
+    each launch shape: verdicts equal to the plain version's and to K15's;
+    device-only in ``turns`` turns, the shapes in alternating order, the
+    median kept beside the spread; the shape the launch takes for n, the
+    rounds of the slowest warp and the time per round (for one thread per
+    lane: its Fp products in a row and the time per product). Returns
+    {n: {...}}."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.ops import points
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+
+    chain = subgroup_fast_products(fp_product_counts(P))
+    base = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in k4_lanes(np, sets)]
+    res = {}
+    for n in sizes:
+        rows = torch.arange(n, device="cuda") % base[0].shape[0]
+        x, y, inf = (t[rows].contiguous() for t in base)
+        want = points.subgroup_check_g2_fast(x, y, inf)
+        full = tc.subgroup_check_g2(x, y, inf)
+        if not torch.equal(want, full):
+            raise AssertionError(f"K4's plain version disagrees with K15 at {n} lanes")
+        if not torch.equal(tc.subgroup_check_g2_fast(x, y, inf), want):
+            raise AssertionError(f"K4 wrapper at {n} lanes != its plain version")
+        runs = {}
+        for shape, lanes in K4_SHAPES.items():
+            def run(lanes=lanes):
+                return k4_shaped(torch, tc, lanes, x, y, inf)
+            if not torch.equal(run(), want):
+                raise AssertionError(f"K4 at {n} lanes, {lanes} per warp, != its "
+                                     "plain version and K15")
+            runs[shape] = run
+        times = {shape: [] for shape in K4_SHAPES}
+        for turn in range(turns):
+            order = list(K4_SHAPES) if turn % 2 == 0 else list(K4_SHAPES)[::-1]
+            for shape in order:
+                times[shape].append(device_ms(torch, runs[shape], DEVICE_REPS, warmup=1))
+        auto = k4_lanes_per_warp(tc, n)
+        row = {"lanes_per_warp": auto}
+        for shape, lanes in K4_SHAPES.items():
+            ms = statistics.median(times[shape])
+            steps = chain if lanes == 32 else K4_ROUNDS
+            row[shape] = {"lanes_per_warp": lanes, "device_ms": ms,
+                          "device_ms_turns": times[shape],
+                          "products_in_a_row" if lanes == 32 else "rounds": steps,
+                          "us_per_product" if lanes == 32 else "us_per_round":
+                              ms * 1e3 / steps}
+        fastest = min(K4_SHAPES, key=lambda k: row[k]["device_ms"])
+        row["fastest"] = K4_SHAPES[fastest]
+        res[n] = row
+        log(f"K4 at {n} lanes, each shape equal to its plain version and K15; "
+            f"the launch takes {auto} per warp, the fastest median measured "
+            f"{K4_SHAPES[fastest]}; device-only: {json.dumps(row)}")
     return res
 
 
@@ -886,9 +1014,7 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     shapes; returns {kernel name: kernels-line entry}."""
     from lighthouse_tpu_torch.crypto.bls.constants import P
     from lighthouse_tpu_torch.crypto.bls.curve import g1_generator
-    from lighthouse_tpu_torch.crypto.bls.fields import Fq2
-    from lighthouse_tpu_torch.crypto.bls.hash_to_curve import map_to_curve_g2
-    from lighthouse_tpu_torch.ops import coop, field, pairing, points
+    from lighthouse_tpu_torch.ops import coop, field, pairing, points, tower
     from lighthouse_tpu_torch.ops import tkernel_calls as tc
     from lighthouse_tpu_torch.ops.points import FP2_OPS, FP_OPS
 
@@ -930,7 +1056,7 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
                     scalar_mul_rounds(np, inf_np, bits_np, lanes),
                     max(scalar_mul_products(np, c, g, inf_np[i:i + 1], bits_np[i:i + 1])
                         for i in range(n)),
-                    lambda: fn(x, y, inf, bits), k3_shape(lanes))
+                    lambda: fn(x, y, inf, bits), warp_shape(lanes))
         ex, ey = x[8:8 + len(edge_scal)], y[8:8 + len(edge_scal)]
         check_kernel(torch, kern, f"K3 scalar_mul_{g} {len(edge_scal)} edge lanes",
                      lambda: fn(ex, ey, einf, ebits),
@@ -987,19 +1113,17 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
             raise AssertionError(f"K2 {g}: the edge lanes' infinity flags")
 
     # K4: 96 signatures in G2, 28 on-curve points outside G2, 4 at infinity
-    pts = [s.signature.point for s in sets[:96]]
-    pts += [map_to_curve_g2(Fq2(s + 2, 3 * s + 1)) for s in range(28)]
-    pts += [s.signature.point for s in sets[124:128]]
-    sx, sy, sinf = points.g2_to_dev(pts)
-    sinf[124:] = True
+    sx, sy, sinf = k4_lanes(np, sets)
     sx, sy, sinf_t = cuda((sx, sy, sinf))
+    k4_products = subgroup_fast_products(c)
     out[tc.K4.name] = check_kernel(
         torch, tc.K4, f"K4 subgroup_fast {n} lanes",
         lambda: tc.subgroup_check_g2_fast(sx, sy, sinf_t),
         lambda: points.subgroup_check_g2_fast(sx, sy, sinf_t),
-        int((~sinf).sum()) * (63 * c["dbl_g2"] + 5 * c["madd_g2"]
-                              + 4 * c["fp2_mul"] + c["fp2_sqr"] + 2 * c["fp2_mul"]),
-        n * (2 * 384 + 2))
+        int((~sinf).sum()) * k4_products, n * (2 * 384 + 2))
+    warp_report(torch, out[tc.K4.name], f"K4 {n} lanes", K4_ROUNDS, k4_products,
+                lambda: tc.subgroup_check_g2_fast(sx, sy, sinf_t),
+                warp_shape(k4_lanes_per_warp(tc, n)))
     # K15, the full-order check [r]Q == inf, on the same lanes: 254
     # doublings and an addition on each of r's 133 one bits below its top
     out[tc.K15.name] = check_kernel(
@@ -1038,8 +1162,13 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     k8_rounds = coop_report(out[tc.K8.name], "K8", coop.miller_plan())
     f = tc.miller_loop_seg((px, py), pinf_t, (qx, qy), qinf_t)
 
-    # K9-K11 at 1 lane (the path's) and 8 lanes, on Miller outputs
-    k9 = c["fp12_inv"] + 2 * c["fp12_mul"] + 2 * c["fp12_frob"]
+    # K9-K11 at 1 lane (the path's) and 8 lanes, on Miller outputs. K9's
+    # bound: its plan's Fp products, the product by R^3 and the divstep
+    # inversion's operations; Fermat's chain (its plain version's, and K9's
+    # before) is kept as its own bound
+    k9_plan = coop.easy_exp_plan()
+    k9 = coop.rounds_per_lane(k9_plan)[2] + 1
+    k9_fermat = c["fp12_inv"] + 2 * c["fp12_mul"] + 2 * c["fp12_frob"]
     k10 = 63 * c["fp12_sqr"] + 5 * c["fp12_mul"]
     k10_rounds = {}
     k11 = {"b": c["fp12_frob"] + c["fp12_mul"],
@@ -1047,11 +1176,19 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
            "final": c["fp12_sqr"] + 2 * c["fp12_mul"]}
     for m in (1, 8):
         fm = f[:m].contiguous()
+        # K9 raw against its plan's model (the divstep inversion's
+        # representative), then after canonical against its plain version
+        check_kernel(torch, tc.K9, f"K9 easy_exp {m} lanes against its plan",
+                     lambda: tc.easy_exp(fm), lambda: coop.easy_exp_steps(fm),
+                     0, 0, time_it=False, raw_only=True)
         e = check_kernel(torch, tc.K9, f"K9 easy_exp {m} lanes",
                          lambda: tc.easy_exp(fm), lambda: tc.easy_exp_plain(fm),
-                         m * k9, m * 2 * 2304)
+                         m * k9, m * 2 * 2304, int_ops=m * gcd_inverse_ops())
+        e["fermat_products"] = m * k9_fermat
         if m == 1:
             out[tc.K9.name] = e
+            coop_report(e, "K9 (one divstep inversion between its two programs)",
+                        k9_plan)
         g = tc.easy_exp_plain(fm)
         for xm1 in (True, False):
             e = check_kernel(
@@ -1078,23 +1215,35 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
     log(f"one product round {product_us:.4f} us, one add round {add_us:.4f} us "
         f"(K8's and K10's (x) times fitted to their rounds per lane)")
 
-    # the 9-launch chain against the plain chain and the classic path
+    # the chain from K10 on, on the plain K9's output, raw against the plain
+    # chain; then the 9-launch chain, K9 included, against the plain chain
+    # and the classic path after canonical
     f1 = f[:1].contiguous()
-    got = tc.final_exp_kernel(f1)
     g = tc.easy_exp_plain(f1)
-    a = tc.pow_x_plain(tc.pow_x_plain(g, True), True)
-    b = tc.comb_plain(tc.pow_x_plain(a, False), a, "b")
-    cc = tc.comb_plain(tc.pow_x_plain(tc.pow_x_plain(b, False), False), b, "c")
-    plain = tc.comb_plain(cc, g, "final")
+
+    def hard_part(pow_x, comb):
+        a = pow_x(pow_x(g, True), True)
+        b = comb(pow_x(a, False), a, "b")
+        cc = comb(pow_x(pow_x(b, False), False), b, "c")
+        return comb(cc, g, "final")
+
+    plain = hard_part(tc.pow_x_plain, tc.comb_plain)
+    r0, _, _ = compare(torch, hard_part(tc.pow_x, tc.comb), plain)
+    if not r0:
+        raise AssertionError("K10-K11 on the plain K9's output disagree with the "
+                             "plain chain in their raw limbs")
+    got = tc.final_exp_kernel(f1)
     classic = pairing.final_exponentiation(f1)
     r1, c1, _ = compare(torch, got, plain)
     r2, c2, _ = compare(torch, got, classic)
-    if not (r1 and r2):
+    one = [bool(tower.fp12_is_one(v)) for v in (got, plain, classic)]
+    if not (c1 and c2) or len(set(one)) != 1:
         raise AssertionError("final_exp_kernel disagrees with the plain chain "
-                             "or pairing.final_exponentiation in its raw limbs")
-    log(f"final_exp_kernel (9 launches): equal to the plain chain (raw {r1}, "
-        f"after canonical {c1}) and to pairing.final_exponentiation (raw "
-        f"{r2}, after canonical {c2})")
+                             "or pairing.final_exponentiation after canonical")
+    log(f"K10-K11 (8 launches) on the plain K9's output: raw limbs of the plain "
+        f"chain {r0}; final_exp_kernel (9 launches): equal to the plain chain "
+        f"after canonical {c1} (raw {r1}) and to pairing.final_exponentiation "
+        f"after canonical {c2} (raw {r2}), fp12_is_one {one[0]} on all three")
     return out
 
 
@@ -1561,6 +1710,7 @@ def main() -> int:
         fused.update(check_msm_kernels(torch, np, sets))
         wide = msm_against_scan(torch, np, sets, 2048)
         sweep = k3_lane_sweep(torch, np, sets)
+        k4_sweep = k4_lane_sweep(torch, np, sets)
         fused.update(check_hash_kernels(torch, np, sets, hashes))
     clock_mhz = gpu.summary["sm_clock_mhz_max"]
     int_rate = INT_MADS_PER_CLOCK * clock_mhz * 1e6
@@ -1644,7 +1794,7 @@ def main() -> int:
                   + e.pop("int_ops", 0)) / int_rate * 1e3
         e["bound_ms"] = max(bytes_ms, ops_ms)
         e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-        if "fermat_products" in e:  # K2: the bound of the Fermat chain it replaced
+        if "fermat_products" in e:  # K2, K9: the bound of the Fermat chain replaced
             fermat_ms = max(bytes_ms, e.pop("fermat_products")
                             * MADS_PER_FP_PRODUCT / int_rate * 1e3)
             log(f"{e['name']}: bound {e['bound_ms']:.6f} ms by its divsteps "
@@ -1677,6 +1827,10 @@ def main() -> int:
         "launch's lanes per warp): " + ", ".join(
             f"{k} {v['one_warp']['device_ms']:.4f} / {v['packed']['device_ms']:.4f} "
             f"({v['lanes_per_warp']})" for k, v in sweep.items()))
+    log("K4 device-only ms at n lanes, one warp per lane / packed / one thread "
+        "per lane (the launch's lanes per warp, the fastest measured): " + ", ".join(
+            f"{n} " + " / ".join(f"{v[k]['device_ms']:.4f}" for k in K4_SHAPES)
+            + f" ({v['lanes_per_warp']}, {v['fastest']})" for n, v in k4_sweep.items()))
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(nvidia_smi_line(), flush=True)

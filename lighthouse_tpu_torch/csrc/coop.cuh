@@ -1,6 +1,7 @@
 // One block per lane: a block runs straight-line Fp programs (ops/coop.py)
 // round by round, the independent operations of a round spread over its
-// threads. Kernels K8 (miller.cu) and K10 (final_exp.cu) are built on it.
+// threads. Kernels K8 (miller.cu), K9 and K10 (final_exp.cu) are built on
+// it.
 //
 // A lane's values live in shared memory as numbered slots of 12 words,
 // word-major (word k of slot s at slots[k * n_slots + s], so threads on
@@ -16,10 +17,12 @@
 // What a block does for its lane is a plan (ops/coop.py Plan, packed by
 // ops/coop.py pack as int16): [n_slots, n_programs, n_loads, n_stores,
 // n_steps], the offset of each program, the loads (slot, source, stride,
-// k), the stores (slot, negate), the steps (program indices), then each
-// program [n_rounds, start of each round and the end, then 4 values per
-// operation]. A block copies the plan from global into shared memory once,
-// after its slots; the kernels name no slot, program or bit of their own.
+// k), the stores (slot, negate), the steps (program indices; in a kernel
+// built with inversion steps, -1 - s inverts fixed slot s in place), then
+// each program [n_rounds, start of each round and the end, then 4 values
+// per operation]. A block copies the plan from global into shared memory
+// once, after its slots; the kernels name no slot, program or bit of their
+// own.
 
 #pragma once
 
@@ -141,10 +144,23 @@ __device__ __forceinline__ void run(const Block& b, int p) {
   }
 }
 
+// An inversion step: slot s <- its inverse (fp.cuh fp_inv_gcd, 0 -> 0),
+// by thread 0 while the block waits at the barrier after it.
+static __device__ __noinline__ void invert(const Block& b, int s) {
+  if (threadIdx.x == 0) {
+    uint32_t x[kWords], r[kWords];
+    get(b, s, x);
+    fp::fp_inv_gcd(r, x);
+    put(b, s, r);
+  }
+  __syncthreads();
+}
+
 // Lane i of the plan `prog` (prog_len int16 values): load the fixed slots
 // from `in`, run the steps unless `skip`, store the outputs to `out`
 // (n_stores Fp values per lane), negated where the plan says unless
-// `skip`.
+// `skip`. Only a kernel built with kInvert runs inversion steps.
+template <bool kInvert = false>
 __device__ __forceinline__ void run_lane(const int16_t* __restrict__ prog,
                                          int prog_len, const Inputs& in,
                                          int4* __restrict__ out, long long i,
@@ -156,7 +172,7 @@ __device__ __forceinline__ void run_lane(const int16_t* __restrict__ prog,
   const int16_t* steps = stores + 2 * n_stores;
   for (int j = threadIdx.x; j < n_loads; j += blockDim.x) {
     const int16_t* ld = loads + 4 * j;
-    if (ld[1] >= 0)
+    if (ld[1] >= 0)  // stride ld[2] 0: an input every lane shares
       load(b, ld[0], in.at(ld[1]) + (i * ld[2] + ld[3]) * kWords);
     else
       set(b, ld[0], ld[1] == kLoadOne);
@@ -164,7 +180,12 @@ __device__ __forceinline__ void run_lane(const int16_t* __restrict__ prog,
   __syncthreads();
   if (!skip) {
 #pragma unroll 1
-    for (int s = 0; s < n_steps; ++s) run(b, steps[s]);
+    for (int s = 0; s < n_steps; ++s) {
+      if (kInvert && steps[s] < 0)
+        invert(b, -1 - steps[s]);
+      else
+        run(b, steps[s]);
+    }
   }
   for (int j = threadIdx.x; j < n_stores; j += blockDim.x)
     store(b, stores[2 * j], out + (i * n_stores + j) * kWords,

@@ -9,14 +9,28 @@
 //                               times conj(f) when xm1 (f^(x-1))
 //   K11 :410 _comb_kernel(mode) b: u frob(v); c: u frob2(v) conj(v);
 //                               final: u v^2 v
-// Each computes what its plain version in ops/tkernel_calls.py computes,
-// limb for limb; chained, they equal ops/pairing.py final_exponentiation.
+// K10 and K11 compute what their plain versions in ops/tkernel_calls.py
+// compute, limb for limb; K9 what ops/coop.py easy_exp_plan computes,
+// limb for limb, which is its plain version's value (easy_exp_plain, with
+// Fermat's inversion) up to the representative in [0, 2p) of the one
+// inverted Fp value, so equal to it after canonical. Chained, they equal
+// ops/pairing.py final_exponentiation after canonical.
 //
 // What bounds them on an H100: the latency of a lane's dependent chain.
 // A verify runs the chain on ONE lane (pairs are reduced to one Fp12 by
 // fp12_tree_prod first), far too few lanes to fill the card's multiply
-// throughput. K9 (~870 Fp products with an inversion) and K11 (75-150)
-// run one thread per lane, the Fp12 values in registers and local memory.
+// throughput. K11 (75-150 Fp products) runs one thread per lane, the Fp12
+// values in registers and local memory.
+//
+// K9 (262 Fp products and one inversion) is one block per lane (coop.cuh)
+// running ops/coop.py easy_exp_plan: the norm program takes f down the
+// tower's inversion formulas (fp12_inv, fp6_inv, fp2_inv) to the one Fp
+// value to invert in 4 product rounds; one thread inverts it by fp.cuh's
+// divstep GCD (1,110 divsteps in place of Fermat's ~608 dependent
+// products) while the block waits at one barrier; the back program takes
+// the inverse up to inv(f), conj(f) inv(f) and frobenius2(g) g in 9
+// product rounds, the Frobenius constants in slots loaded from a shared
+// input.
 //
 // K10 (63 Fp12 squarings and 5 products, ~2,540 Fp products) is one block
 // per lane (coop.cuh) running ops/coop.py pow_x_plan(xm1): each squaring
@@ -36,15 +50,14 @@ using namespace bls;
 
 constexpr int W12 = 12 * kWords;  // int4 per Fp12 value
 
-__global__ void __launch_bounds__(kLaneThreads)
-    easy_exp_kernel(const int4* __restrict__ f, int4* __restrict__ out,
-                    long long n) {
-  const long long i = lane_index();
-  if (i >= n) return;
-  Fp12 a;
-  load(a, f + i * W12);
-  const Fp12 g = mul(conj(a), inv(a));  // f^(p^6 - 1)
-  store(out + i * W12, mul(frobenius2(g), g));
+// f^((p^6-1)(p^2+1)) on the plan easy_exp_plan: one block per lane, the
+// Frobenius constants (6 Fp) shared by the lanes.
+__global__ void __launch_bounds__(kCoopThreads)
+    easy_exp_kernel(const int4* __restrict__ f, const int4* __restrict__ consts,
+                    const int16_t* __restrict__ prog, int4* __restrict__ out,
+                    int prog_len) {
+  coop::run_lane<true>(prog, prog_len, coop::Inputs{{f, consts}}, out,
+                       blockIdx.x, false);
 }
 
 // f^x (ops/pairing.py _cyc_pow_x) for f in the cyclotomic subgroup, or
@@ -77,12 +90,16 @@ __global__ void __launch_bounds__(kLaneThreads)
 }  // namespace
 
 // f, u, v, out: n x 2 x 3 x 2 x 48 int32. Each returns cudaGetLastError().
-extern "C" int lh_easy_exp(const void* f, void* out, long long n,
+// consts: ops/coop.py easy_exp_consts, 6 x 48 int32; prog: ops/coop.py
+// pack(easy_exp_plan()), prog_len int16 values, and smem_bytes its
+// shared_bytes.
+extern "C" int lh_easy_exp(const void* f, const void* consts, const void* prog,
+                           void* out, int smem_bytes, int prog_len, long long n,
                            void* stream) {
   if (n <= 0) return 0;
-  easy_exp_kernel<<<lane_blocks(n), kLaneThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)f, (int4*)out, n);
-  return (int)cudaGetLastError();
+  return coop::launch(easy_exp_kernel, n, smem_bytes, (cudaStream_t)stream,
+                      (const int4*)f, (const int4*)consts, (const int16_t*)prog,
+                      (int4*)out, prog_len);
 }
 
 // prog: ops/coop.py pack(pow_x_plan(xm1)), prog_len int16 values, and

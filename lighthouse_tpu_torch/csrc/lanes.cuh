@@ -41,4 +41,23 @@ __device__ __forceinline__ long long lane_index() {
   return (long long)blockIdx.x * blockDim.x + threadIdx.x;
 }
 
+#ifdef __CUDACC__
+// The current device's SM count into *sms, read once per device (K3's and
+// K4's shapes follow it); returns a CUDA error code. A host build of the
+// kernels (the tests' harnesses) gives its own.
+inline int sm_count(int* sms) {
+  static int sms_of[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *sms = sms_of[dev];
+  return 0;
+}
+#endif
+
 }  // namespace bls

@@ -76,19 +76,13 @@ __global__ void __launch_bounds__(kWarpThreads)
 }
 
 // Lanes per warp for n lanes: one while each lane can have an SM of its
-// own, else packed. The SM count is read once per device.
+// own, else packed.
 template <class F>
 int lanes_per_warp(long long n, int* out) {
-  static int sms_of[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (sms_of[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  *out = n <= sms_of[dev] ? 1 : kWarpThreads / kPackedThreads<F>;
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err) return err;
+  *out = n <= sms ? 1 : kWarpThreads / kPackedThreads<F>;
   return 0;
 }
 

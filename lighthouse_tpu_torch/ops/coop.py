@@ -1,14 +1,16 @@
-"""Straight-line Fp programs for the block-per-lane kernels K8 and K10.
+"""Straight-line Fp programs for the block-per-lane kernels K8, K9 and K10.
 
-A lane-step of the Miller loop (one bit of |x|) or of the cyclotomic
-x-power (a squaring, a product) is written out here as a list of Fp
-operations on numbered slots, each ``(op, dst, a, b)`` with op one of
-``MUL``, ``ADD``, ``SUB``, ``NEG``. The operations are those of the plain
-versions' expression trees, op for op: the Karatsuba terms of
-``ops/tower.py``, the doubling and addition steps of ``ops/pairing.py``,
-the sparse line product of ``ops/tkernel_pairing.py``, each add and sub
-with the same operands in the same order. So a program gives the plain
-version's limbs exactly, whoever runs each operation.
+A lane-step of the Miller loop (one bit of |x|), of the cyclotomic
+x-power (a squaring, a product) or of the easy part of the final
+exponentiation (the norm down to one Fp value, and back from its inverse)
+is written out here as a list of Fp operations on numbered slots, each
+``(op, dst, a, b)`` with op one of ``MUL``, ``ADD``, ``SUB``, ``NEG``. The
+operations are those of the plain versions' expression trees, op for op:
+the Karatsuba terms and the inversion formulas of ``ops/tower.py``, the
+doubling and addition steps of ``ops/pairing.py``, the sparse line product
+of ``ops/tkernel_pairing.py``, each add and sub with the same operands in
+the same order. So a program gives the plain version's limbs exactly,
+whoever runs each operation.
 
 The operations are grouped into rounds: no operation of a round reads a
 slot that another operation of the round writes, and no two write one
@@ -20,11 +22,16 @@ of them, and the additions between two product rounds take as many rounds
 as their longest chain there. A program's first inputs sit in fixed slots
 that its outputs overwrite (each write after every read of the old
 value), so a kernel runs the step again on its own output; the other
-values share the remaining slots by lifetime.
+values share the remaining slots by lifetime, and only the fixed slots
+carry a value from one step to the next.
 
 A :class:`Plan` is all a kernel's block does for its lane: the loads
-that fill the fixed slots from the kernel's inputs, the programs and the
-order of their steps (one per bit of |x|), and the slots it stores.
+that fill the fixed slots from the kernel's inputs (or constants), the
+programs and the order of their steps (one per bit of |x|, or K9's norm,
+inversion and back-substitution), and the slots it stores. An inversion
+step is no program: one thread inverts one fixed slot in place with
+``csrc/fp.cuh`` ``fp_inv_gcd`` (a divstep GCD), the block waiting at a
+barrier; :func:`invert_model` gives its representative exactly.
 :func:`to_device` packs a plan into the ``int16`` tensor the kernel reads,
 cached per device, so the kernel's source names no slot, program or bit.
 :func:`run_program` runs a program on CPU tensors with the port's
@@ -40,41 +47,49 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..crypto.bls.constants import P
 from . import field
 from .field import const
 from .points import X_BITS
-from .tower import FP2_ONE
+from .tower import FP2_ONE, FROB6_C1, FROB6_C2, FROB12_C1
 
 MUL, ADD, SUB, NEG = 0, 1, 2, 3
 _COMMUTES = (MUL, ADD)
 
-# Threads per block (one lane) of K8 and K10 (csrc/lanes.cuh kCoopThreads):
+# Threads per block (one lane) of K8-K10 (csrc/lanes.cuh kCoopThreads):
 # a round's operations are dealt to them in turn.
 THREADS = 64
 
 # Fixed slots. K10: the accumulator and the base f, 12 Fp each (the
 # [2, 3, 2] coefficients in order). K8: f, then T = (X, Y, Z), then P's
-# (xp, yp) and Q's (xq, yq).
+# (xp, yp) and Q's (xq, yq). K9: f (and its output), fp6_inv's t (3 Fp2),
+# fp2_inv's input d and its norm, inverted in place, then the Frobenius
+# constants FROB6_C1, FROB6_C2, FROB12_C1.
 POW_ACC, POW_BASE = 0, 12
 MIL_F, MIL_T, MIL_XP, MIL_YP, MIL_XQ, MIL_YQ = 0, 12, 18, 19, 20, 22
 N_FIXED = 24
+EXP_F, EXP_T, EXP_D, EXP_N, EXP_C = 0, 12, 18, 20, 21
+EXP_FIXED = 27
 
-# Program indices: K10's pow_x_programs(), K8's miller_programs().
+# Program indices: K10's pow_x_programs(), K8's miller_programs(), K9's
+# easy_exp_programs().
 POW_SQR, POW_MUL, POW_CONJ_MUL = 0, 1, 2
 MIL_DBL, MIL_ADD = 0, 1
+EXP_NORM, EXP_BACK = 0, 1
 
 
 # ---------------------------------------------------------------- tracing
 
 
 class _Trace:
-    """Records Fp operations on symbolic values. Values below ``N_FIXED``
-    are the fixed input slots; operation ``i`` makes value ``N_FIXED + i``.
+    """Records Fp operations on symbolic values. Values below ``n_fixed``
+    are the fixed slots; operation ``i`` makes value ``n_fixed + i``.
     An operation already recorded with the same operands is not recorded
     twice (the stacked plain versions compute some sums more than once:
     the same limbs)."""
 
-    def __init__(self):
+    def __init__(self, n_fixed: int = N_FIXED):
+        self.n_fixed = n_fixed
         self.ops: list[tuple[int, int, int]] = []
         self._seen: dict[tuple[int, int, int], int] = {}
 
@@ -82,7 +97,7 @@ class _Trace:
         key = (kind, *sorted((a, b))) if kind in _COMMUTES else (kind, a, b)
         if key not in self._seen:
             self.ops.append((kind, a, b))
-            self._seen[key] = N_FIXED + len(self.ops) - 1
+            self._seen[key] = self.n_fixed + len(self.ops) - 1
         return self._seen[key]
 
     def mul(self, a, b):
@@ -155,8 +170,19 @@ class _Tower:
     def fp2_mul_fp(self, a, k):
         return (self.t.mul(a[0], k), self.t.mul(a[1], k))
 
+    def fp2_conj(self, a):
+        return (a[0], self.t.neg(a[1]))
+
     def xi(self, a):
         return (self.t.sub(a[0], a[1]), self.t.add(a[0], a[1]))
+
+    def fp2_norm(self, a):
+        """fp2_inv's c0^2 + c1^2, the one Fp value it inverts."""
+        return self.t.add(self.t.mul(a[0], a[0]), self.t.mul(a[1], a[1]))
+
+    def fp2_inv_back(self, a, norm_inv):
+        """fp2_inv from its norm's inverse: (c0 ni, -c1 ni)."""
+        return (self.t.mul(a[0], norm_inv), self.t.mul(self.t.neg(a[1]), norm_inv))
 
     # Fp6
     def fp6_mul(self, a, b):
@@ -175,6 +201,22 @@ class _Tower:
     def v(self, a):
         return (self.xi(a[2]), a[0], a[1])
 
+    def fp6_inv_norm(self, a):
+        """fp6_inv down to its Fp2 denominator: (t, denom), the inverse
+        being t denom^-1."""
+        c0, c1, c2 = a
+        m = self.fp2_mul
+        a_sq, bc, c_sq, ab, b_sq, ac = (m(c0, c0), m(c1, c2), m(c2, c2),
+                                        m(c0, c1), m(c1, c1), m(c0, c2))
+        t = (self.sub(a_sq, self.xi(bc)), self.sub(self.xi(c_sq), ab),
+             self.sub(b_sq, ac))
+        n0, n1, n2 = m(c0, t[0]), m(c2, t[1]), m(c1, t[2])
+        return t, self.add(n0, self.xi(self.add(n1, n2)))
+
+    def fp6_frobenius(self, a, k1, k2):
+        c0, c1, c2 = (self.fp2_conj(x) for x in a)
+        return (c0, self.fp2_mul(c1, k1), self.fp2_mul(c2, k2))
+
     # Fp12
     def fp12_mul(self, a, b):
         sa, sb = self.add(a[0], a[1]), self.add(b[0], b[1])
@@ -190,6 +232,22 @@ class _Tower:
 
     def fp12_conj(self, a):
         return (a[0], self.neg(a[1]))
+
+    def fp12_inv_norm(self, a):
+        """fp12_inv down to fp6_inv's denominator: (t, d)."""
+        a0, a1 = a
+        denom = self.sub(self.fp6_mul(a0, a0), self.v(self.fp6_mul(a1, a1)))
+        return self.fp6_inv_norm(denom)
+
+    def fp12_inv_back(self, a, t, d_inv):
+        """fp12_inv from the inverse of fp6_inv's denominator."""
+        d6 = tuple(self.fp2_mul(ti, d_inv) for ti in t)
+        return (self.fp6_mul(a[0], d6), self.neg(self.fp6_mul(a[1], d6)))
+
+    def fp12_frobenius(self, a, k6_1, k6_2, k12):
+        f1 = self.fp6_frobenius(a[1], k6_1, k6_2)
+        return (self.fp6_frobenius(a[0], k6_1, k6_2),
+                tuple(self.fp2_mul(x, k12) for x in f1))
 
     # Miller loop
     def dbl_step(self, T):
@@ -277,22 +335,22 @@ class Program:
 def _schedule(name: str, t: _Trace, outputs: dict[int, int]) -> Program:
     """Rounds and slots for the trace's operations; ``outputs`` maps a
     fixed slot to the value written there."""
-    n = len(t.ops)
+    n, nf = len(t.ops), t.n_fixed
     made = {v: s for s, v in outputs.items()}
-    if len(made) != len(outputs) or any(v < N_FIXED for v in made):
+    if len(made) != len(outputs) or any(v < nf for v in made):
         raise ValueError(f"{name}: each output must be a distinct computed value")
     # stage: products on the longest chain into a value; depth: operations
     # of that stage on the longest chain (products have depth 0)
-    stage = [0] * (N_FIXED + n)
-    depth = [0] * (N_FIXED + n)
+    stage = [0] * (nf + n)
+    depth = [0] * (nf + n)
     for i, (kind, a, b) in enumerate(t.ops):
-        v = N_FIXED + i
+        v = nf + i
         stage[v] = max(stage[a], stage[b]) + (kind == MUL)
         if kind != MUL:
             depth[v] = 1 + max(depth[u] for u in (a, b) if stage[u] == stage[v])
-    n_stages = max(stage[N_FIXED:]) + 1
+    n_stages = max(stage[nf:]) + 1
     adds = [0] * n_stages
-    for v in range(N_FIXED, N_FIXED + n):
+    for v in range(nf, nf + n):
         adds[stage[v]] = max(adds[stage[v]], depth[v])
     # round index: stage k's adds follow its product round
     first = []
@@ -303,27 +361,27 @@ def _schedule(name: str, t: _Trace, outputs: dict[int, int]) -> Program:
     n_rounds = r
     rnd = [0] * n
     for i in range(n):
-        v = N_FIXED + i
+        v = nf + i
         k = stage[v]
         rnd[i] = first[k] + (depth[v] - 1 if k == 0 else depth[v])
     # every read of a fixed slot precedes the output write that replaces it
-    last_read = [-1] * (N_FIXED + n)
+    last_read = [-1] * (nf + n)
     for i, (_, a, b) in enumerate(t.ops):
         for u in (a, b):
             last_read[u] = max(last_read[u], rnd[i])
     for s, v in outputs.items():
-        if rnd[v - N_FIXED] <= last_read[s]:
+        if rnd[v - nf] <= last_read[s]:
             raise ValueError(f"{name}: output slot {s} is written before its "
                              f"last read")
     # slots: outputs in place; other values reuse a slot freed in an
     # earlier round
-    slot = list(range(N_FIXED)) + [-1] * n
+    slot = list(range(nf)) + [-1] * n
     order = sorted(range(n), key=lambda i: rnd[i])
     free: list[int] = []
     releases: dict[int, list[int]] = {}
-    used = N_FIXED
+    used = nf
     for i in order:
-        v = N_FIXED + i
+        v = nf + i
         for rr in sorted(k for k in releases if k < rnd[i]):
             free.extend(releases.pop(rr))
         if v in made:
@@ -337,7 +395,7 @@ def _schedule(name: str, t: _Trace, outputs: dict[int, int]) -> Program:
             releases.setdefault(max(last_read[v], rnd[i]), []).append(slot[v])
     rounds = [[] for _ in range(n_rounds)]
     for i, (kind, a, b) in enumerate(t.ops):
-        rounds[rnd[i]].append((kind, slot[N_FIXED + i], slot[a], slot[b]))
+        rounds[rnd[i]].append((kind, slot[nf + i], slot[a], slot[b]))
     return Program(
         name=name,
         rounds=tuple(np.array(sorted(r, key=lambda o: o[0] != MUL), np.int64).reshape(-1, 4)
@@ -362,8 +420,8 @@ def check_rounds(p: Program) -> None:
 # ------------------------------------------------------------ the programs
 
 
-def _program(name: str, body) -> Program:
-    t = _Trace()
+def _program(name: str, body, n_fixed: int = N_FIXED) -> Program:
+    t = _Trace(n_fixed)
     outputs = body(_Tower(t))
     return _schedule(name, t, {s: v for s, v in outputs})
 
@@ -415,6 +473,36 @@ def miller_programs() -> tuple[Program, ...]:
     return (_program("miller_dbl", _miller_dbl), _program("miller_add", _miller_add))
 
 
+def _easy_inputs():
+    t = tuple(_fixed(EXP_T + 2 * i, (2,)) for i in range(3))
+    consts = tuple(_fixed(EXP_C + 2 * i, (2,)) for i in range(3))
+    return _fp12(EXP_F), t, _fixed(EXP_D, (2,)), consts
+
+
+def _easy_norm(w: _Tower):
+    f, _, _, _ = _easy_inputs()
+    t, d = w.fp12_inv_norm(f)
+    return _outputs(EXP_T, t) + _outputs(EXP_D, d) + [(EXP_N, w.fp2_norm(d))]
+
+
+def _easy_back(w: _Tower):
+    f, t, d, consts = _easy_inputs()
+    g = w.fp12_mul(w.fp12_conj(f), w.fp12_inv_back(f, t, w.fp2_inv_back(d, EXP_N)))
+    g2 = w.fp12_frobenius(w.fp12_frobenius(g, *consts), *consts)
+    return _outputs(EXP_F, w.fp12_mul(g2, g))
+
+
+@functools.cache
+def easy_exp_programs() -> tuple[Program, ...]:
+    """K9's steps around the inversion: the norm (fp12_inv, fp6_inv and
+    fp2_inv of ops/tower.py down to the one Fp value fp2_inv inverts,
+    keeping fp6_inv's t and fp2_inv's input) and the back-substitution
+    (from that value's inverse up to inv(f), then conj(f) inv(f) and
+    frobenius2(g) g, as ops/pairing.py easy_part)."""
+    return (_program("easy_norm", _easy_norm, EXP_FIXED),
+            _program("easy_back", _easy_back, EXP_FIXED))
+
+
 def _x_steps(per_bit: int, per_one: int) -> list[int]:
     """Program ``per_bit`` for each bit of |x| below the leading one,
     ``per_one`` after each one bit."""
@@ -430,12 +518,20 @@ def _x_steps(per_bit: int, per_one: int) -> list[int]:
 ZERO, ONE = -1, -2
 
 
+def invert_step(slot: int) -> int:
+    """The step that inverts fixed slot ``slot`` in place (csrc/coop.cuh
+    reads a negative step so)."""
+    return -1 - slot
+
+
 @dataclass(frozen=True, eq=False)
 class Plan:
     """What a kernel's block does for its lane. ``loads`` fill the fixed
     slots, each (slot, source, stride, k): the lane's Fp value ``k`` of
-    input ``source`` (``stride`` Fp values per lane), or ``ZERO`` / ``ONE``.
-    ``steps`` index ``programs`` and run in turn. ``stores`` are the lane's
+    input ``source`` (``stride`` Fp values per lane; stride 0: value ``k``
+    of an input that every lane shares), or ``ZERO`` / ``ONE``. ``steps``
+    index ``programs`` and run in turn; a negative step is
+    :func:`invert_step`'s. ``stores`` are the lane's
     outputs in order, each (slot, negate), negated where asked (a
     conjugate's c1); a lane the kernel skips runs no step and stores its
     loaded slots as they are."""
@@ -452,8 +548,10 @@ class Plan:
 
 
 def rounds_per_lane(plan: Plan) -> tuple[int, int, int]:
-    """(product rounds, add rounds, Fp products) of one lane of ``plan``."""
-    n = np.bincount(np.asarray(plan.steps, np.int64), minlength=len(plan.programs))
+    """(product rounds, add rounds, Fp products) of one lane of ``plan``'s
+    programs (an inversion step is none of these)."""
+    steps = np.asarray(plan.steps, np.int64)
+    n = np.bincount(steps[steps >= 0], minlength=len(plan.programs))
     return tuple(int(sum(k * getattr(p, a) for k, p in zip(n, plan.programs)))
                  for a in ("product_rounds", "add_rounds", "products"))
 
@@ -495,7 +593,48 @@ def miller_plan() -> Plan:
     )
 
 
+@functools.cache
+def easy_exp_plan() -> Plan:
+    """K9 on the input f (12 Fp per lane) and the shared Frobenius
+    constants (:func:`easy_exp_consts`): the norm, the inversion of its one
+    Fp value, the back-substitution; the output in f's slots."""
+    loads = [(EXP_F + k, 0, 12, k) for k in range(12)]
+    loads += [(EXP_C + k, 1, 0, k) for k in range(6)]
+    return Plan(
+        name="easy_exp",
+        programs=easy_exp_programs(),
+        loads=tuple(loads),
+        steps=(EXP_NORM, invert_step(EXP_N), EXP_BACK),
+        stores=tuple((EXP_F + k, False) for k in range(12)),
+    )
+
+
+_EXP_CONSTS = np.concatenate([FROB6_C1, FROB6_C2, FROB12_C1])
+
+
+def easy_exp_consts(device) -> torch.Tensor:
+    """K9's second input: FROB6_C1, FROB6_C2, FROB12_C1 as int32 [6, 48]."""
+    return const(_EXP_CONSTS, device)
+
+
 # ------------------------------------------------------- the plain model
+
+
+# R^3 mod p in limbs: a Montgomery product by it takes the plain integer
+# inverse of a R to a^-1 R (csrc/fp.cuh kR3).
+_R3_LIMBS = field.int_to_limbs(pow(field.R_MONT, 3, P))
+
+
+def invert_model(a: torch.Tensor) -> torch.Tensor:
+    """What an inversion step (csrc/fp.cuh fp_inv_gcd) leaves in its slot,
+    limb for limb: the plain integer inverse of canonical(a) (0 -> 0), then
+    one Montgomery product by R^3. Same value mod p as ``field.mont_inv``
+    (Fermat), possibly another representative in [0, 2p). a: int32
+    [..., 48]."""
+    c = field.canonical(a).cpu().numpy().reshape(-1, field.N_LIMBS)
+    inv = [pow(x, P - 2, P) for x in (field.limbs_to_int(row) for row in c)]
+    i = torch.from_numpy(field.ints_to_limbs(inv)).to(a.device).reshape(a.shape)
+    return field.mont_mul(i, const(_R3_LIMBS, a.device))
 
 
 def run_program(p: Program, slots: torch.Tensor) -> None:
@@ -525,12 +664,19 @@ def run_plan(plan: Plan, inputs, skip=None) -> torch.Tensor:
             ONE: const(FP2_ONE, dev)[0]}
     slots = torch.zeros(n, plan.n_slots, field.N_LIMBS, dtype=torch.int32, device=dev)
     for slot, src, stride, k in plan.loads:
-        slots[:, slot] = fill[src] if src < 0 else \
-            inputs[src].reshape(n, stride, field.N_LIMBS)[:, k]
+        if src < 0:
+            slots[:, slot] = fill[src]
+        elif stride == 0:
+            slots[:, slot] = inputs[src].reshape(-1, field.N_LIMBS)[k]
+        else:
+            slots[:, slot] = inputs[src].reshape(n, stride, field.N_LIMBS)[:, k]
     idx = [s for s, _ in plan.stores]
     loaded = slots[:, idx].clone()
     for step in plan.steps:
-        run_program(plan.programs[step], slots)
+        if step < 0:
+            slots[:, -1 - step] = invert_model(slots[:, -1 - step])
+        else:
+            run_program(plan.programs[step], slots)
     out = slots[:, idx]
     negate = torch.tensor([bool(g) for _, g in plan.stores], device=dev)
     out = torch.where(negate[:, None], field.neg(out), out)
@@ -543,6 +689,13 @@ def pow_x_steps(f: torch.Tensor, xm1: bool) -> torch.Tensor:
     """K10's plan on the CPU: f^x, or f^x conj(f) when ``xm1``
     (f: Fp12 [n, 2, 3, 2, 48], cyclotomic)."""
     return run_plan(pow_x_plan(xm1), (f,)).reshape(-1, 2, 3, 2, field.N_LIMBS)
+
+
+def easy_exp_steps(f: torch.Tensor) -> torch.Tensor:
+    """K9's plan on tensors: f^((p^6-1)(p^2+1)) with the divstep
+    inversion's representative (f: Fp12 [n, 2, 3, 2, 48])."""
+    out = run_plan(easy_exp_plan(), (f, easy_exp_consts(f.device)))
+    return out.reshape(-1, 2, 3, 2, field.N_LIMBS)
 
 
 def miller_steps(p_aff, p_inf, q_aff, q_inf) -> torch.Tensor:

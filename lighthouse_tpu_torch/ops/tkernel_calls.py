@@ -6,11 +6,12 @@ each run one long sequential chain of the verify (affine normalisation,
 RLC scalar multiplication, subgroup check, Miller loop, final
 exponentiation) as one program. Here each is a CUDA kernel under
 ``lighthouse_tpu_torch/csrc/`` that runs the chain one lane per thread; K3
-runs a lane on a group of a warp's threads with the warp group law of
-``csrc/warp_curve.cuh`` (the whole warp up to one lane per SM, 8 G1 or 4
-G2 lanes per warp past that), and K8 and K10 one lane per block: the block
-runs the straight-line programs of ``ops/coop.py``, which the wrapper
-hands it.
+and K4 run a lane on a group of a warp's threads with the warp group law of
+``csrc/warp_curve.cuh`` (the whole warp up to one lane per SM, several
+lanes per warp past that, and K4 one lane per thread past a few packed
+warps per SM), and K8-K10 one lane per block: the block runs the
+straight-line programs of ``ops/coop.py``, which the wrapper hands it (K9's
+with one divstep inversion between two programs).
 
 Every wrapper takes the port's batch-major tensors, with one leading lane
 axis: Fp ``int32[n, 48]``, Fp2 ``[n, 2, 48]``, Fp12 ``[n, 2, 3, 2, 48]``,
@@ -21,7 +22,9 @@ masks ``bool[n]``.
   ``torch.empty``; it launches on the current stream; it raises on a
   nonzero CUDA error; it counts the launch on its ``_build.Kernel``. Zero
   lanes launch nothing.
-* CPU tensors go to the plain version, which computes the same limbs.
+* CPU tensors go to the plain version, which computes the same limbs
+  (K9: the same value, equal after ``canonical``; its plan's model
+  ``coop.easy_exp_steps`` gives its limbs).
 
 There is no fallback from one to the other. Importing this module builds
 nothing; each library compiles at its first launch or in
@@ -245,7 +248,8 @@ def miller_loop(p_aff, p_inf, q_aff, q_inf):
 # ------------------------------------------------------------ K9-K11
 
 
-# f^((p^6-1)(p^2+1)): g = conj(f) / f, then frob2(g) g.
+# f^((p^6-1)(p^2+1)): g = conj(f) / f, then frob2(g) g (Fermat's inversion;
+# K9 inverts by divsteps, the same value, another representative).
 easy_exp_plain = easy_part
 
 
@@ -267,18 +271,18 @@ def comb_plain(u, v, mode: str):
     raise ValueError(f"unknown comb mode {mode!r}")
 
 
-def _fp12_call(kernel, operands, ints):
-    (*ins,), n = _checked(kernel, [(f, torch.int32, _FP12) for f in operands])
-    out = _empty(n, _FP12, ins[0])
-    _launch(kernel, (*ins, out), ints, n)
-    return out
-
-
 def easy_exp(f):
-    """Kernel K9 on Fp12 [n, 2, 3, 2, 48] (plain: :func:`easy_exp_plain`)."""
+    """Kernel K9 on Fp12 [n, 2, 3, 2, 48] (plain: :func:`easy_exp_plain`,
+    equal after ``canonical``; limb for limb: ``coop.easy_exp_steps``)."""
     if _on_cpu(f):
         return easy_exp_plain(f)
-    return _fp12_call(K9, (f,), ())
+    (f,), n = _checked(K9, [(f, torch.int32, _FP12)])
+    plan = coop.easy_exp_plan()
+    prog = coop.to_device(plan, f.device)
+    out = _empty(n, _FP12, f)
+    _launch(K9, (f, coop.easy_exp_consts(f.device), prog, out),
+            (coop.shared_bytes(plan), prog.numel()), n)
+    return out
 
 
 def pow_x(f, xm1: bool):
@@ -299,14 +303,18 @@ def comb(u, v, mode: str):
         raise ValueError(f"unknown comb mode {mode!r}")
     if _on_cpu(u, v):
         return comb_plain(u, v, mode)
-    return _fp12_call(K11, (u, v), (COMB_MODES.index(mode),))
+    (u, v), n = _checked(K11, [(u, torch.int32, _FP12), (v, torch.int32, _FP12)])
+    out = _empty(n, _FP12, u)
+    _launch(K11, (u, v, out), (COMB_MODES.index(mode),), n)
+    return out
 
 
 def final_exp_kernel(f):
     """f^(3(p^12-1)/r) as the 9-launch chain of the reference's
     ``_final_exp_t``: the easy part, then the HHT hard part from 5 x-powers
-    and 3 combinations. Equals ``pairing.final_exponentiation`` limb for
-    limb (the same chain of the same tower calls)."""
+    and 3 combinations. Equals ``pairing.final_exponentiation``: limb for
+    limb on the CPU (the same chain of the same tower calls), after
+    ``canonical`` on the card (K9's inversion)."""
     g = easy_exp(f)
     a = pow_x(pow_x(g, True), True)
     b = comb(pow_x(a, False), a, "b")

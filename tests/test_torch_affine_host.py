@@ -10,7 +10,8 @@ barrier. This checks K1's tile walk (the persistent grid, both stages, the
 ragged last tile, the rotated chunk order) limb for limb against
 ``mont_mul_plain``, ``fp.cuh``'s divstep inversion against ``pow(x, p - 2,
 p)``, and K2 (``csrc/to_affine.cu``, G1 and G2) against
-``points.pt_to_affine`` on seeded points and the edge lanes. What it cannot
+``points.pt_to_affine`` on seeded points and the edge lanes, each call
+under the time limit of ``harness_call``. What it cannot
 check is the asynchronous copies themselves and the card's scheduling:
 ``chip_smoke.py`` and the ``cuda`` tests of ``tests/test_torch_kernels.py``
 do, on the card.
@@ -34,6 +35,7 @@ from lighthouse_tpu_torch.crypto.bls.constants import P
 from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator
 from lighthouse_tpu_torch.crypto.bls.fields import Fq2
 from lighthouse_tpu_torch.ops import field, mont_mul, points
+from tests.test_torch_htc_host import harness_call
 
 CSRC = Path(__file__).resolve().parent.parent / "lighthouse_tpu_torch" / "csrc"
 R = 1 << 384
@@ -202,9 +204,11 @@ def test_k1_tile_layout_matches_python(host_libs):
     """The host build's tile is the one this file assumes, and two stages
     of an a and a b tile plus two mbarriers fit the 48 KiB step (4 blocks
     per SM on an H100's 228 KiB)."""
-    assert host_libs["k1"].k1_tile() == TILE
-    assert host_libs["k1"].k1_smem() == 2 * 2 * TILE * 192 + 16
-    assert 4 * (host_libs["k1"].k1_smem() + 1024) <= 228 * 1024
+    k1 = host_libs["k1"]
+    tile, smem = harness_call(lambda: (k1.k1_tile(), k1.k1_smem()))
+    assert tile == TILE
+    assert smem == 2 * 2 * TILE * 192 + 16
+    assert 4 * (smem + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("n, grid", [
@@ -219,7 +223,7 @@ def test_k1_tile_layout_matches_python(host_libs):
 def test_tiled_mont_mul_matches_plain(host_libs, n, grid):
     a, b = _operands(n, seed=n)
     out = torch.full((n, 48), -1, dtype=torch.int32)
-    host_libs["k1"].k1(_ptr(a), _ptr(b), _ptr(out), n, grid)
+    harness_call(lambda: host_libs["k1"].k1(_ptr(a), _ptr(b), _ptr(out), n, grid), out)
     assert torch.equal(out, mont_mul.mont_mul_plain(a, b))
 
 
@@ -271,8 +275,8 @@ def test_gcd_inverse_matches_fermat(host_libs):
     a = np.array([_words(x) for x in xs], np.uint32)
     gcd = np.zeros_like(a)
     mont = np.zeros_like(a)
-    host_libs["k2"].inv_words(a.ctypes.data, gcd.ctypes.data, mont.ctypes.data,
-                              len(xs))
+    harness_call(lambda: host_libs["k2"].inv_words(a.ctypes.data, gcd.ctypes.data,
+                                                   mont.ctypes.data, len(xs)), gcd, mont)
     for x, g, m in zip(xs, gcd, mont):
         assert _value(g) == pow(x % P, P - 2, P)
         r = _value(m)
@@ -327,7 +331,8 @@ def test_to_affine_matches_plain(host_libs, group):
     n = J[0].shape[0]
     ox, oy = torch.empty_like(J[0]), torch.empty_like(J[0])
     inf = torch.zeros(n, dtype=torch.bool)
-    getattr(host_libs["k2"], f"k2_{group}")(*(_ptr(t) for t in (*J, ox, oy, inf)), n)
+    k2 = getattr(host_libs["k2"], f"k2_{group}")
+    harness_call(lambda: k2(*(_ptr(t) for t in (*J, ox, oy, inf)), n), ox, oy, inf)
     want = points.pt_to_affine(F, J)
     assert torch.equal(ox, want[0]) and torch.equal(oy, want[1])
     assert torch.equal(inf, want[2])

@@ -11,7 +11,8 @@ the warp bodies (their rounds over Fp and Fp2, the slots they deal products
 to, the branches each group takes on a bit or a point at infinity) limb
 for limb against ``points.pt_scalar_mul_bits`` and ``msm.horner_plain``,
 K3's choice of shape by lane count, and the sources' launch shape: one
-warp per block, no block-wide barrier. What it cannot
+warp per block, no block-wide barrier. Each call into the host build runs
+under the time limit of ``harness_call``. What it cannot
 check is the PTX branch of the carry words and the card's scheduling:
 ``chip_smoke.py`` and the ``cuda`` tests of ``tests/test_torch_kernels.py``
 do, on the card.
@@ -32,28 +33,30 @@ import torch
 from chip_smoke import horner_edge_windows
 from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator
 from lighthouse_tpu_torch.ops import msm, points
-from tests.test_torch_htc_host import SHIM
+from tests.test_torch_htc_host import SHIM, harness_call
 
 CSRC = Path(__file__).resolve().parent.parent / "lighthouse_tpu_torch" / "csrc"
 
-# One block at a time: 32 threads and a barrier for the whole-warp
-# __syncwarp. msm.cu's K6 (one block of 256 threads on dynamic shared
-# memory) compiles beside K7 but does not run here.
-HARNESS = r"""
+# Blocks of one warp, one block at a time: 32 threads, and a barrier for
+# each group of 4, 8, 16 or 32 consecutive threads that a __syncwarp mask
+# names; the CUDA runtime calls of the launch paths (not run here) on a
+# card of 132 SMs.
+WARP_HARNESS = r"""
 #include <barrier>
 #include <thread>
 #include <vector>
 thread_local Dim threadIdx, blockIdx;
 Dim blockDim = {32, 1, 1};
-// the CUDA runtime calls of scalar_mul.cu's launch path (not run here)
-enum cudaError_t { cudaSuccess, cudaErrorInvalidValue, cudaErrorInvalidDevice };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 132;  // an H100 SXM's SMs
-  return cudaSuccess;
-}
+// the CUDA runtime calls of the launch paths (not run here), and lanes.cuh's
+// SM count (its CUDA branch)
+enum cudaError_t { cudaSuccess, cudaErrorInvalidValue };
 inline int cudaGetLastError() { return 0; }
+namespace bls {
+inline int sm_count(int* sms) {
+  *sms = 132;  // an H100 SXM's SMs
+  return 0;
+}
+}  // namespace bls
 // a barrier for each group of 4, 8, 16 or 32 consecutive threads: the
 // group of size 4 << s starting at thread 4 k is g_sync[s][k]
 static std::barrier<>* g_sync[4][8];
@@ -68,11 +71,6 @@ void __syncwarp(unsigned mask) {
 void __syncthreads() { abort(); }
 #undef __launch_bounds__
 #define __launch_bounds__(...)
-namespace {
-int4 smem[1];
-}
-#include "scalar_mul_kernels.inc"
-#include "msm_kernels.inc"
 
 template <class F>
 static void warps(long long nb, F f) {
@@ -88,6 +86,16 @@ static void warps(long long nb, F f) {
     for (auto& t : ts) t.join();
   }
 }
+"""
+
+# K3 and K7 on the warp harness. msm.cu's K6 (one block of 256 threads on
+# dynamic shared memory) compiles beside K7 but does not run here.
+HARNESS = WARP_HARNESS + r"""
+namespace {
+int4 smem[1];
+}
+#include "scalar_mul_kernels.inc"
+#include "msm_kernels.inc"
 template <class F, int kThreadsPerLane>
 static void k3(const int* qx, const int* qy, const unsigned char* inf,
                const int* bits, int* oX, int* oY, int* oZ, int nbits,
@@ -212,8 +220,8 @@ def _check_k3(host_lib, group, nbits, n_seeded, lanes):
     n = x.shape[0]
     out = torch.zeros(3, *x.shape, dtype=torch.int32)
     fn = host_lib.k3_g1 if group == "g1" else host_lib.k3_g2
-    fn(_ptr(x), _ptr(y), _ptr(inf), _ptr(bits), _ptr(out[0]), _ptr(out[1]),
-       _ptr(out[2]), nbits, n, lanes)
+    harness_call(lambda: fn(_ptr(x), _ptr(y), _ptr(inf), _ptr(bits), _ptr(out[0]),
+                            _ptr(out[1]), _ptr(out[2]), nbits, n, lanes), out)
     want = points.pt_scalar_mul_bits(F, (x, y), inf, bits)
     for got, w in zip(out, want):
         assert torch.equal(got, w)
@@ -251,7 +259,8 @@ def test_lanes_per_warp_follows_the_lane_count(host_lib):
     on the harness's stand-in), packed past that: 8 lanes per warp for G1,
     4 for G2."""
     for g2, packed in ((0, 8), (1, 4)):
-        assert [host_lib.k3_lanes_per_warp(g2, n) for n in (1, 128, 132, 133, 2048)] == [
+        assert harness_call(lambda: [host_lib.k3_lanes_per_warp(g2, n)
+                                     for n in (1, 128, 132, 133, 2048)]) == [
             1, 1, 1, packed, packed]
 
 
@@ -280,7 +289,8 @@ def test_horner_warp_body_matches_plain(host_lib, windows):
     T = _tree_output(5) if windows.startswith("tree") else horner_edge_windows(torch)
     T = tuple(c.contiguous() for c in T)
     out = torch.zeros(3, 1, 2, 48, dtype=torch.int32)
-    host_lib.k7(*(_ptr(c) for c in T), _ptr(out[0]), _ptr(out[1]), _ptr(out[2]))
+    harness_call(lambda: host_lib.k7(*(_ptr(c) for c in T), _ptr(out[0]), _ptr(out[1]),
+                                     _ptr(out[2])), out)
     for got, w in zip(out, msm.horner_plain(T)):
         assert torch.equal(got, w)
 

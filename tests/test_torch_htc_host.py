@@ -13,14 +13,19 @@ group takes) limb for limb against ``map_to_g2_resident_plain``,
 branch of the carry words and the card's scheduling: ``chip_smoke.py`` and
 the ``cuda`` tests of ``tests/test_torch_kernels.py`` do, on the card.
 
-The test skips where no host C++ compiler with C++20 is found.
+The test skips where no host C++ compiler with C++20 is found. Every call
+into a host build runs through :func:`harness_call`, in a child process
+under a time limit, so a thread stuck at a barrier fails its test instead
+of stalling the run.
 """
 
 import ctypes
+import multiprocessing
 import random
 import re
 import shutil
 import subprocess
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +39,49 @@ from lighthouse_tpu_torch.ops import tkernel_htc as th
 
 CSRC = Path(__file__).resolve().parent.parent / "lighthouse_tpu_torch" / "csrc"
 R = 1 << 384
+
+# Seconds a host-harness call may take: each takes well under ten here.
+HARNESS_SECONDS = 120
+
+
+def harness_call(call, *outs, seconds=HARNESS_SECONDS):
+    """Run ``call()``, a call into a host build that writes into the CPU
+    tensors or numpy arrays ``outs``, in a forked child; copy what it wrote
+    back and return what it returned. Fails the test when the child runs
+    past ``seconds`` (a thread of an emulated warp or block that never
+    reaches a barrier waits forever) or dies."""
+    ctx = multiprocessing.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+
+    def child():
+        ret = call()
+        send.send((ret, [np.array(o, copy=True) for o in outs]))
+
+    proc = ctx.Process(target=child, daemon=True)
+    with warnings.catch_warnings():
+        # the child runs only the call and the copy: no lock that another
+        # thread of this process may hold
+        warnings.simplefilter("ignore", DeprecationWarning)
+        proc.start()
+    send.close()
+    try:
+        if not recv.poll(seconds):
+            proc.kill()
+            proc.join()
+            pytest.fail(f"host-harness call still running after {seconds} s "
+                        "(a thread stuck at a barrier?)")
+        try:
+            ret, data = recv.recv()
+        except EOFError:
+            proc.join()
+            pytest.fail(f"host-harness call died (exit code {proc.exitcode})")
+    finally:
+        recv.close()
+    proc.join()
+    for o, d in zip(outs, data):
+        np.asarray(o)[...] = d
+    return ret
+
 
 # The CUDA built-ins the sources use, for a host compiler.
 SHIM = r"""
@@ -161,7 +209,8 @@ def test_fp_words_match_integers(host_lib):
     a = np.array([_words(x) for x, _ in pairs], np.uint32)
     b = np.array([_words(y) for _, y in pairs], np.uint32)
     out = np.zeros((len(pairs), 36), np.uint32)
-    host_lib.fp_words(a.ctypes.data, b.ctypes.data, out.ctypes.data, len(pairs))
+    harness_call(lambda: host_lib.fp_words(a.ctypes.data, b.ctypes.data,
+                                           out.ctypes.data, len(pairs)), out)
     ninv = pow(P, -1, R)
     for (x, y), o in zip(pairs, out):
         assert _value(o[:12]) == (x * y + ((-x * y * ninv) % R) * P) // R
@@ -217,7 +266,8 @@ def test_map_to_g2_warp_body_matches_plain(host_lib, edge_us):
     Q0 + Q1 and the cofactor on the warp; raw limbs of the plain map."""
     n = edge_us.shape[0]
     out = _out(n)
-    host_lib.k12(_ptr(edge_us), _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), n)
+    harness_call(lambda: host_lib.k12(_ptr(edge_us), _ptr(out[0]), _ptr(out[1]),
+                                      _ptr(out[2]), n), out)
     want = th.map_to_g2_resident_plain(edge_us)
     for got, w in zip(out, want):
         assert torch.equal(got, w)
@@ -228,14 +278,16 @@ def test_sswu_iso_and_cofactor_warp_bodies_match_plain(host_lib, edge_us):
     and K14 on a point and a point at infinity; raw limbs."""
     flat = torch.cat([edge_us[:, 0], edge_us[:, 1]])[:7].contiguous()
     out = _out(7)
-    host_lib.k13(_ptr(flat), _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), 7)
+    harness_call(lambda: host_lib.k13(_ptr(flat), _ptr(out[0]), _ptr(out[1]),
+                                      _ptr(out[2]), 7), out)
     J = th.sswu_iso_plain(flat)
     for got, w in zip(out, J):
         assert torch.equal(got, w)
     Q = tuple(c[:2].clone() for c in J)
     Q[2][1] = 0
     out = _out(2)
-    host_lib.k14(*(_ptr(c) for c in Q), _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), 2)
+    harness_call(lambda: host_lib.k14(*(_ptr(c) for c in Q), _ptr(out[0]),
+                                      _ptr(out[1]), _ptr(out[2]), 2), out)
     for got, w in zip(out, th.cofactor_plain(Q)):
         assert torch.equal(got, w)
 

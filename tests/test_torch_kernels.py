@@ -25,7 +25,7 @@ from lighthouse_tpu_torch.crypto.bls.constants import R as ORDER
 from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator, g2_infinity
 from lighthouse_tpu_torch.crypto.bls.fields import Fq2
 from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2, map_to_curve_g2
-from lighthouse_tpu_torch.ops import field, htc, mont_mul, msm, pairing, points, tower
+from lighthouse_tpu_torch.ops import coop, field, htc, mont_mul, msm, pairing, points, tower
 from lighthouse_tpu_torch.ops import tkernel_calls as tc
 from lighthouse_tpu_torch.ops import tkernel_htc as th
 
@@ -167,6 +167,12 @@ def _same(got, want):
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _same_canonical(got, want):
+    """Equal after canonical: K9's divstep inversion may leave another
+    representative in [0, 2p) than its plain version's Fermat."""
+    return _same(field.canonical(got), field.canonical(want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_scalar_mul_and_to_affine_kernels_match_plain(group):
@@ -246,6 +252,38 @@ def test_subgroup_fast_kernel_matches_plain_and_full_order():
 
 
 @pytest.mark.cuda
+def test_subgroup_fast_kernel_in_every_shape():
+    """K4 one warp per lane, 4 lanes per warp and one thread per lane
+    (lh_subgroup_fast_shaped) on more lanes than the card has SMs, a
+    ragged last warp among them: each shape's verdicts are the plain
+    version's; the wrapper's launch takes the shape lh_subgroup_fast
+    chooses, and counts one launch."""
+    import ctypes
+
+    _card()
+    g = g2_generator()
+    pts = [g.mul(k) for k in range(2, 7)] + [map_to_curve_g2(Fq2(k, 1)) for k in range(2)]
+    n = torch.cuda.get_device_properties(0).multi_processor_count + 3
+    x, y, inf = _cuda(*points.g2_to_dev(pts))
+    rows = torch.arange(n, device="cuda") % len(pts)
+    x, y, inf = x[rows], y[rows], inf[rows]
+    inf[3] = True
+    want = points.subgroup_check_g2_fast(x, y, inf)
+    lib = tc.K4.library.load()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for lanes in (1, 4, 32):
+        out = torch.empty(n, dtype=torch.bool, device="cuda")
+        rc = lib.lh_subgroup_fast_shaped(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (x, y, inf, out)),
+            ctypes.c_int(lanes), ctypes.c_longlong(n), stream)
+        assert rc == 0
+        assert _same(out, want), lanes
+    before = tc.K4.launches
+    assert _same(tc.subgroup_check_g2_fast(x, y, inf), want)
+    assert tc.K4.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_miller_and_final_exp_kernels_match_plain():
     _card()
     g1, g2 = g1_generator(), g2_generator()
@@ -256,12 +294,13 @@ def test_miller_and_final_exp_kernels_match_plain():
     f = tc.miller_loop((px, py), pinf, (qx, qy), qinf)
     assert _same(f, tc.miller_loop_seg((px, py), pinf, (qx, qy), qinf))
     g = tc.easy_exp(f)
-    assert _same(g, tc.easy_exp_plain(f))
+    assert _same(g, coop.easy_exp_steps(f))  # its plan, limb for limb
+    assert _same_canonical(g, tc.easy_exp_plain(f))
     for xm1 in (False, True):
         assert _same(tc.pow_x(g, xm1), tc.pow_x_plain(g, xm1))
     for mode in tc.COMB_MODES:
         assert _same(tc.comb(f, g, mode), tc.comb_plain(f, g, mode))
-    assert _same(tc.final_exp_kernel(f[:1]), pairing.final_exponentiation(f[:1]))
+    assert _same_canonical(tc.final_exp_kernel(f[:1]), pairing.final_exponentiation(f[:1]))
 
 
 def _miller_inputs(n):
@@ -304,13 +343,16 @@ def test_pow_x_kernel_matches_plain_on_cyclotomic_lanes(n):
 @pytest.mark.cuda
 def test_final_exp_chain_matches_final_exponentiation():
     """The 9-launch chain (K9, K10 five times, K11 three times) on two lanes
-    against the classic final exponentiation, raw limbs."""
+    against the classic final exponentiation, after canonical (K9's
+    divstep inversion), with the same fp12_is_one."""
     _card()
     f = tc.miller_loop(*_miller_inputs(2))
     before = tc.K10.launches
     got = tc.final_exp_kernel(f)
     assert tc.K10.launches == before + 5
-    assert _same(got, pairing.final_exponentiation(f))
+    want = pairing.final_exponentiation(f)
+    assert _same_canonical(got, want)
+    assert torch.equal(tower.fp12_is_one(got), tower.fp12_is_one(want))
 
 
 @pytest.mark.cuda
