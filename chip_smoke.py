@@ -21,15 +21,15 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    path gives it and with its edge lanes (infinity, Z = 1, scalars 0, 1,
    2^64-1 and single one bits, a base at infinity, points outside G2; for
    K2 also Z = 0, Z = p, Z in [p, 2p) and Z = p - 1): equality after
-   ``canonical`` (and whether the raw limbs match; K2, K3, K8 and K10 must
-   match raw), its time per call and device-only (K2 also its host
-   enqueue),
-   K4 also against K15, K9 also raw against its ``ops/coop.py`` plan's
-   model (the divstep inversion's representative; against its plain
+   ``canonical`` (and whether the raw limbs match; K2, K3, K8, K10 and
+   K11, each of its three modes, must match raw), its time per call and
+   device-only (K2 also its host enqueue), K4 also against K15, K9 also
+   raw against its ``ops/coop.py`` plan's model (the divstep
+   inversion's representative; against its plain
    version after canonical), the chain from K10 on raw against the plain
    chain on the plain K9's output, and the whole final-exponentiation chain
    against the plain chain and the classic ``pairing.final_exponentiation``
-   after canonical; kernel and plain times; for K8-K10 the product and add
+   after canonical; kernel and plain times; for K8-K11 the product and add
    rounds per lane of their ``ops/coop.py`` programs, their shared memory
    and the time per round; for K3 and K4 (a lane on a group of a warp's
    threads on ``csrc/warp_curve.cuh``: the whole warp up to one lane per
@@ -39,17 +39,25 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    both shapes, raw-equal and device-only, and K4 at 128-8192 lanes in its
    three shapes, equal to its plain version and K15, device-only in three
    alternating turns, each beside the shape the launch takes;
-5. the MSM kernels (K5 accumulate, K6 tree, K7 Horner, the last one warp on
-   ``csrc/warp_curve.cuh``) against their plain versions at the main path's
-   shapes (the batch's 128 signatures, a schedule from seeded scalars, L =
-   48), on all 256 lanes (K7 on lane 0, raw limbs, its rounds and time per
-   round), then on the edge batch (a duplicate signature whose mixed
-   addition doubles, S and -S cancelling in a bucket before a further
-   addition, an empty bucket), with every set skipped, and K7 on windows
-   that take every leg of the complete addition; the MSM point against the scan
-   (K3 G2 and the S-leaf tree) and the oracle's sum r_i S_i at canonical
+5. the MSM kernels (K5 accumulate and K7 Horner on groups of a warp's
+   threads of ``csrc/warp_curve.cuh``, K6 tree) against their plain
+   versions at the main path's shapes (the batch's 128 signatures, a
+   schedule from seeded scalars, L = 48), on all 256 lanes (K5 in the
+   launch's shape raw against ``msm.accum_segments_plain``, its segment
+   model, and against ``accum_plain`` at canonical affine, its rounds on
+   the slowest group and time per round; K7 on lane 0, raw limbs, its
+   rounds and time per round), then on the edge batch (a duplicate
+   signature whose mixed addition doubles, S and -S cancelling in a bucket
+   before a further addition, an empty bucket), with every set skipped
+   (K5 there at each of its segment counts), and K7 on windows that take
+   every leg of the complete addition; the MSM point against the scan (K3
+   G2 and the S-leaf tree) and the oracle's sum r_i S_i at canonical
    affine; kernel-only times of the MSM against the scan at S=2048, where
-   K3 G2 also runs raw-equal to its plain version at 2048 lanes;
+   K3 G2 also runs raw-equal to its plain version at 2048 lanes; K5 at
+   S = 128, 512, 2048, 4096 and 8192 at each segment count (1-32 segments
+   per bucket, each on a group of 8 threads), equal to ``accum_plain`` at
+   canonical affine, device-only in five alternating turns, beside the
+   segments the launch takes and the deepest bucket;
 6. the hash kernels (K12 resident map, K13 SSWU + isogeny, K14 cofactor;
    one warp per message, htc.cu's ptxas lines repeated) against their
    plain versions, raw limbs equal, at the shapes the batch's 128 distinct
@@ -953,11 +961,14 @@ def compare(torch, got, want):
 
 
 def check_kernel(torch, kernel, label, run_kernel, run_plain, fp_products,
-                 nbytes, time_it=True, raw_only=False, int_ops=0) -> dict:
+                 nbytes, time_it=True, raw_only=False, int_ops=0,
+                 plain_timed=None) -> dict:
     """One kernel against its plain version on the same inputs; raises
     unless they agree after canonical, or, with ``raw_only``, unless the raw
     limbs are equal. The bound counts its Fp products and ``int_ops`` other
-    32-bit integer operations. Returns the kernels-line entry."""
+    32-bit integer operations. ``plain_timed``, where given, is the plain
+    version timed in place of ``run_plain`` (K5: compared with its segment
+    model, timed as accum_plain). Returns the kernels-line entry."""
     got = run_kernel()
     torch.cuda.synchronize()
     want = run_plain()
@@ -975,7 +986,8 @@ def check_kernel(torch, kernel, label, run_kernel, run_plain, fp_products,
     if time_it:
         entry["ms"] = median_ms(torch, run_kernel, KERNEL_REPS, warmup=1)
         entry["device_ms"] = device_ms(torch, run_kernel, DEVICE_REPS, warmup=1)
-        entry["plain_ms"] = median_ms(torch, run_plain, PLAIN_REPS, warmup=0)
+        entry["plain_ms"] = median_ms(torch, plain_timed or run_plain, PLAIN_REPS,
+                                      warmup=0)
     log(f"{label}: equal to plain after canonical {canon}, raw limbs {raw}"
         + (f"; kernel per call {entry['ms']:.4f} ms, device-only "
            f"{entry['device_ms']:.4f} ms, plain {entry['plain_ms']:.1f} ms"
@@ -1206,7 +1218,9 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
             e = check_kernel(
                 torch, tc.K11, f"K11 comb {mode} {m} lanes",
                 lambda: tc.comb(u, g, mode), lambda: tc.comb_plain(u, g, mode),
-                m * k11[mode], m * 3 * 2304)
+                m * k11[mode], m * 3 * 2304, raw_only=True)
+            if m == 1:
+                coop_report(e, f"K11 {mode}", coop.comb_plan(mode))
             if m == 1 and mode == "c":
                 out[tc.K11.name] = e
 
@@ -1315,6 +1329,129 @@ def horner_edge_windows(torch):
     return T
 
 
+# K5's segments per bucket, each on a group of K5_GROUP threads
+# (csrc/msm.cu kPackedGroup), every block within 256 threads
+K5_GROUP = 8
+K5_SEGMENTS = (1, 2, 4, 8, 16, 32)
+
+
+def k5_shape_name(segments: int) -> str:
+    """threads per group x segments per bucket"""
+    return f"{K5_GROUP}x{segments}"
+
+
+def k5_shaped(torch, msm, segments: int, sx, sy, idx, valid):
+    """K5 at a given number of segments through the library's
+    lh_msm_accum_shaped (not counted: the smoke's comparison of shapes)."""
+    import ctypes
+
+    from lighthouse_tpu_torch.ops import _build
+
+    out = torch.empty((3, 256, 2, 48), dtype=torch.int32, device=sx.device)
+    rc = msm.K5.library.load().lh_msm_accum_shaped(
+        ctypes.c_int(segments),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (sx, sy, idx, valid, *out)),
+        ctypes.c_int(idx.shape[0]), ctypes.c_int(sx.shape[0]), ctypes.c_longlong(256),
+        ctypes.c_void_p(_build.current_stream(sx)))
+    if rc:
+        raise RuntimeError(f"lh_msm_accum_shaped({segments}): CUDA error {rc}")
+    return out[0], out[1], out[2]
+
+
+def k5_segment_work(np, msm, c: dict, valid, k: int) -> tuple[int, int]:
+    """(Fp products, rounds on the slowest group) of K5 cut into k segments
+    (k = 1: unsplit) for this schedule: a mixed addition for each point of
+    a segment after its first (the first lands on infinity), a complete
+    addition for each join of two nonempty sums; the slowest group's
+    mixed additions and its bucket's log2 k join levels at 6 rounds each.
+    Counted for points in general position, as random signatures and
+    scalars give."""
+    import torch
+
+    want = msm.segment_bounds(torch.from_numpy(np.ascontiguousarray(valid)), k)[2].numpy()
+    adds = np.maximum(want - 1, 0)
+    products = int(adds.sum()) * c["madd_g2"]
+    live = want > 0
+    step = 1
+    while step < k:
+        both = live[0::2 * step] & live[step::2 * step]
+        products += int(both.sum()) * c["add_g2"]
+        live[0::2 * step] |= live[step::2 * step]
+        step *= 2
+    rounds = int(adds.max()) * ADD_ROUNDS + (k.bit_length() - 1) * ADD_ROUNDS
+    return products, rounds
+
+
+def same_points(torch, tc, P, Q) -> bool:
+    """Lane for lane the same point at canonical affine (K2 G2 on both)."""
+    return all(torch.equal(a, b) for a, b in zip(tc.to_affine_g2(P), tc.to_affine_g2(Q)))
+
+
+def k5_shape_sweep(torch, np, sets, sizes=(128, 512, 2048, 4096, 8192),
+                   turns: int = 5) -> dict:
+    """K5 at S = n sets (n points [k_i] sig_(i mod 128) made on the card,
+    seeded scalars, L = max_rounds(n)) at each segment count: equal to
+    accum_plain at canonical affine; device-only in ``turns`` turns, the
+    shapes in alternating order, the median kept beside the spread; the
+    shape the launch takes, the fastest measured, the deepest bucket and
+    each shape's rounds on its slowest group. Returns {n: {...}}."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.ops import msm, points
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+
+    c = fp_product_counts(P)
+    dev = torch.device("cuda")
+    base_x, base_y, _ = points.g2_to_dev([s.signature.point for s in sets])
+    res = {}
+    for n in sizes:
+        rng = np.random.default_rng(n)
+        rows = np.arange(n) % len(sets)
+        ks = [int(k) for k in rng.integers(1, 1 << 62, n, dtype=np.int64)]
+        none = torch.zeros(n, dtype=torch.bool, device=dev)
+        bx = torch.from_numpy(base_x[rows]).to(dev)
+        by = torch.from_numpy(base_y[rows]).to(dev)
+        kb = torch.from_numpy(points.scalars_to_bits(ks, 64)).to(dev)
+        sx, sy, _ = tc.to_affine_g2(tc.scalar_mul_g2(bx, by, none, kb))
+        L = msm.max_rounds(n)
+        idx, valid = msm.build_schedule(seeded_scalars(np, n + 1, n), L)
+        ti = torch.from_numpy(idx).to(dev)
+        tv = torch.from_numpy(valid).to(dev)
+        want = msm.accum_plain(sx, sy, ti, tv)
+        runs = {}
+        for shape in K5_SEGMENTS:
+            def run(shape=shape):
+                return k5_shaped(torch, msm, shape, sx, sy, ti, tv)
+            if not same_points(torch, tc, run(), want):
+                raise AssertionError(f"K5 at S={n}, shape {shape}, != accum_plain "
+                                     "at canonical affine")
+            runs[shape] = run
+        if not same_points(torch, tc, msm.accumulate(sx, sy, ti, tv), want):
+            raise AssertionError(f"K5 wrapper at S={n} != accum_plain at canonical affine")
+        times = {shape: [] for shape in K5_SEGMENTS}
+        for turn in range(turns):
+            order = K5_SEGMENTS if turn % 2 == 0 else K5_SEGMENTS[::-1]
+            for shape in order:
+                times[shape].append(device_ms(torch, runs[shape], DEVICE_REPS, warmup=1))
+        auto = msm.accum_segments(L)
+        counts = valid.sum(0)
+        row = {"L": L, "bucket_max": int(counts.max()), "bucket_mean": float(counts.mean()),
+               "launch": k5_shape_name(auto)}
+        for shape in K5_SEGMENTS:
+            ms = statistics.median(times[shape])
+            products, rounds = k5_segment_work(np, msm, c, valid, shape)
+            row[k5_shape_name(shape)] = {"device_ms": ms, "device_ms_turns": times[shape],
+                                         "rounds": rounds, "us_per_round": ms * 1e3 / rounds,
+                                         "fp_products": products}
+        fastest = min(K5_SEGMENTS, key=lambda sh: row[k5_shape_name(sh)]["device_ms"])
+        row["fastest"] = k5_shape_name(fastest)
+        res[n] = row
+        log(f"K5 at S={n} (L={L}, deepest bucket {row['bucket_max']}), every shape "
+            f"equal to accum_plain at canonical affine; the launch takes "
+            f"{row['launch']} (threads per group x segments), the fastest median "
+            f"measured {row['fastest']}; device-only: {json.dumps(row)}")
+    return res
+
+
 def check_msm_kernels(torch, np, sets) -> dict:
     """K5, K6 and K7 against their plain versions on the card at the main
     path's shapes (the batch's 128 signatures, seeded scalars, L = 48), on
@@ -1341,12 +1478,27 @@ def check_msm_kernels(torch, np, sets) -> dict:
     sx, sy, ti, tv = cuda(sx, sy, idx, valid)
     work = msm_products(np, c, valid)
     out = {}
+    # K5 at the launch's segments, raw against its segment model (accum_plain
+    # itself when unsplit), then against accum_plain at canonical affine.
+    # Its bound counts the function's work (msm_products); the split's
+    # segments and joins go into its rounds and the warp_report line.
+    k = msm.accum_segments(L)
+    k5_products, k5_rounds = k5_segment_work(np, msm, c, valid, k)
     out[msm.K5.name] = check_kernel(
-        torch, msm.K5, f"K5 msm_accum {n} sets, L={L}, 256 lanes",
+        torch, msm.K5, f"K5 msm_accum {n} sets, L={L}, 256 lanes, "
+        f"{k5_shape_name(k)} (threads per group x segments)",
         lambda: msm.accumulate(sx, sy, ti, tv),
-        lambda: msm.accum_plain(sx, sy, ti, tv),
-        work["msm_accum"], n * 2 * 384 + L * 240 * 5 + 3 * 256 * 384)
+        lambda: msm.accum_segments_plain(sx, sy, ti, tv, k),
+        work["msm_accum"], n * 2 * 384 + L * 240 * 5 + 3 * 256 * 384, raw_only=True,
+        plain_timed=lambda: msm.accum_plain(sx, sy, ti, tv))
     B = msm.accum_plain(sx, sy, ti, tv)
+    if not same_points(torch, tc, msm.accumulate(sx, sy, ti, tv), B):
+        raise AssertionError("K5 != accum_plain at canonical affine")
+    warp_report(torch, out[msm.K5.name], "K5", k5_rounds, k5_products,
+                lambda: msm.accumulate(sx, sy, ti, tv),
+                f"a bucket as {k} segments on groups of {K5_GROUP} threads, "
+                f"joined in {k.bit_length() - 1} levels; equal to accum_plain at "
+                "canonical affine")
     out[msm.K6.name] = check_kernel(
         torch, msm.K6, "K6 msm_tree 256 lanes",
         lambda: msm.tree(B), lambda: msm.tree_plain(B),
@@ -1380,9 +1532,18 @@ def check_msm_kernels(torch, np, sets) -> dict:
                         ("every set skipped", np.ones(n, bool))):
         sched = msm.build_schedule(re, L, skip)
         ei, ev = cuda(*sched)
-        check_kernel(torch, msm.K5, f"K5 {label}", lambda: msm.accumulate(ex, ey, ei, ev),
-                     lambda: msm.accum_plain(ex, ey, ei, ev), 0, 0, time_it=False)
         EB = msm.accum_plain(ex, ey, ei, ev)
+        models = {}
+        for shape in K5_SEGMENTS:  # every shape, raw against its model
+            models[shape] = msm.accum_segments_plain(ex, ey, ei, ev, shape)
+            check_kernel(torch, msm.K5, f"K5 {label}, shape {k5_shape_name(shape)}",
+                         lambda: k5_shaped(torch, msm, shape, ex, ey, ei, ev),
+                         lambda: models[shape], 0, 0, time_it=False, raw_only=True)
+            if not same_points(torch, tc, k5_shaped(torch, msm, shape, ex, ey, ei, ev), EB):
+                raise AssertionError(f"K5 {label}, shape {shape}: != accum_plain at "
+                                     "canonical affine")
+        check_kernel(torch, msm.K5, f"K5 {label}", lambda: msm.accumulate(ex, ey, ei, ev),
+                     lambda: models[k], 0, 0, time_it=False, raw_only=True)
         check_kernel(torch, msm.K6, f"K6 {label}", lambda: msm.tree(EB),
                      lambda: msm.tree_plain(EB), 0, 0, time_it=False)
         ET = msm.tree_plain(EB)
@@ -1709,6 +1870,7 @@ def main() -> int:
         fused = check_fused_kernels(torch, np, sets, hashes)
         fused.update(check_msm_kernels(torch, np, sets))
         wide = msm_against_scan(torch, np, sets, 2048)
+        k5_sweep = k5_shape_sweep(torch, np, sets)
         sweep = k3_lane_sweep(torch, np, sets)
         k4_sweep = k4_lane_sweep(torch, np, sets)
         fused.update(check_hash_kernels(torch, np, sets, hashes))
@@ -1823,6 +1985,12 @@ def main() -> int:
     log(f"MSM against the scan at S={wide['S']}: MSM {wide['msm_ms']:.4f} ms "
         f"(K5 {wide['k5_ms']:.4f}, K6 {wide['k6_ms']:.4f}, K7 {wide['k7_ms']:.4f}), "
         f"scan {wide['scan_ms']:.4f} ms (K3 G2 {wide['k3_g2_ms']:.4f})")
+    log("K5 device-only ms at S sets by shape (threads per group x segments; "
+        "the launch's shape, the fastest measured): " + "; ".join(
+            f"S={n} L={v['L']} " + ", ".join(
+                f"{k5_shape_name(sh)} {v[k5_shape_name(sh)]['device_ms']:.4f}"
+                for sh in K5_SEGMENTS) + f" ({v['launch']}, {v['fastest']})"
+            for n, v in k5_sweep.items()))
     log("K3 device-only ms at n lanes, one warp per lane / packed (the "
         "launch's lanes per warp): " + ", ".join(
             f"{k} {v['one_warp']['device_ms']:.4f} / {v['packed']['device_ms']:.4f} "

@@ -19,8 +19,7 @@
 // What bounds them on an H100: the latency of a lane's dependent chain.
 // A verify runs the chain on ONE lane (pairs are reduced to one Fp12 by
 // fp12_tree_prod first), far too few lanes to fill the card's multiply
-// throughput. K11 (75-150 Fp products) runs one thread per lane, the Fp12
-// values in registers and local memory.
+// throughput.
 //
 // K9 (262 Fp products and one inversion) is one block per lane (coop.cuh)
 // running ops/coop.py easy_exp_plan: the norm program takes f down the
@@ -39,16 +38,20 @@
 // rounds. A lane is then 68 product rounds and ~810 add rounds deep (one
 // thread: ~2,540 products in a row), and its time is those rounds times
 // one round's latency.
+//
+// K11 (75-150 Fp products) is one block per lane (coop.cuh) running
+// ops/coop.py comb_plan(mode), one program per mode in comb_plain's
+// expression order: b 3 product rounds and 21 add rounds, c 6 and 42,
+// final 3 and 34, where one thread ran the products in a row with the
+// Fp12 values spilled to local memory. The wrapper picks the mode's plan;
+// the Frobenius constants come from a shared input, as K9's do.
 
 #include "coop.cuh"
-#include "curve.cuh"
 #include "lanes.cuh"
 
 namespace {
 
 using namespace bls;
-
-constexpr int W12 = 12 * kWords;  // int4 per Fp12 value
 
 // f^((p^6-1)(p^2+1)) on the plan easy_exp_plan: one block per lane, the
 // Frobenius constants (6 Fp) shared by the lanes.
@@ -68,23 +71,15 @@ __global__ void __launch_bounds__(kCoopThreads)
   coop::run_lane(prog, prog_len, coop::Inputs{{f}}, out, blockIdx.x, false);
 }
 
-__global__ void __launch_bounds__(kLaneThreads)
+// u frob(v), u frob2(v) conj(v) or u v^2 v on the plan comb_plan(mode):
+// one block per lane, the Frobenius constants (6 Fp) shared by the lanes.
+__global__ void __launch_bounds__(kCoopThreads)
     comb_kernel(const int4* __restrict__ u, const int4* __restrict__ v,
-                int4* __restrict__ out, int mode, long long n) {
-  const long long i = lane_index();
-  if (i >= n) return;
-  Fp12 a, b;
-  load(a, u + i * W12);
-  load(b, v + i * W12);
-  Fp12 r;
-  if (mode == 0) {
-    r = mul(a, frobenius(b));
-  } else if (mode == 1) {
-    r = mul(mul(a, frobenius2(b)), conj(b));
-  } else {
-    r = mul(mul(a, sqr(b)), b);
-  }
-  store(out + i * W12, r);
+                const int4* __restrict__ consts,
+                const int16_t* __restrict__ prog, int4* __restrict__ out,
+                int prog_len) {
+  coop::run_lane(prog, prog_len, coop::Inputs{{u, v, consts}}, out,
+                 blockIdx.x, false);
 }
 
 }  // namespace
@@ -113,11 +108,14 @@ extern "C" int lh_pow_x(const void* f, const void* prog, void* out,
                       prog_len);
 }
 
-// mode: 0 = b, 1 = c, 2 = final.
-extern "C" int lh_comb(const void* u, const void* v, void* out, int mode,
-                       long long n, void* stream) {
+// consts: ops/coop.py easy_exp_consts; prog: ops/coop.py
+// pack(comb_plan(mode)) for the mode b, c or final, prog_len int16 values,
+// and smem_bytes its shared_bytes.
+extern "C" int lh_comb(const void* u, const void* v, const void* consts,
+                       const void* prog, void* out, int smem_bytes,
+                       int prog_len, long long n, void* stream) {
   if (n <= 0) return 0;
-  comb_kernel<<<lane_blocks(n), kLaneThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)u, (const int4*)v, (int4*)out, mode, n);
-  return (int)cudaGetLastError();
+  return coop::launch(comb_kernel, n, smem_bytes, (cudaStream_t)stream,
+                      (const int4*)u, (const int4*)v, (const int4*)consts,
+                      (const int16_t*)prog, (int4*)out, prog_len);
 }

@@ -1,9 +1,9 @@
-"""Straight-line Fp programs for the block-per-lane kernels K8, K9 and K10.
+"""Straight-line Fp programs for the block-per-lane kernels K8-K11.
 
 A lane-step of the Miller loop (one bit of |x|), of the cyclotomic
 x-power (a squaring, a product) or of the easy part of the final
 exponentiation (the norm down to one Fp value, and back from its inverse)
-is written out here as a list of Fp operations on numbered slots, each
+or of the hard part's combinations (K11's three modes) is written out here as a list of Fp operations on numbered slots, each
 ``(op, dst, a, b)`` with op one of ``MUL``, ``ADD``, ``SUB``, ``NEG``. The
 operations are those of the plain versions' expression trees, op for op:
 the Karatsuba terms and the inversion formulas of ``ops/tower.py``, the
@@ -56,7 +56,7 @@ from .tower import FP2_ONE, FROB6_C1, FROB6_C2, FROB12_C1
 MUL, ADD, SUB, NEG = 0, 1, 2, 3
 _COMMUTES = (MUL, ADD)
 
-# Threads per block (one lane) of K8-K10 (csrc/lanes.cuh kCoopThreads):
+# Threads per block (one lane) of K8-K11 (csrc/lanes.cuh kCoopThreads):
 # a round's operations are dealt to them in turn.
 THREADS = 64
 
@@ -64,12 +64,15 @@ THREADS = 64
 # [2, 3, 2] coefficients in order). K8: f, then T = (X, Y, Z), then P's
 # (xp, yp) and Q's (xq, yq). K9: f (and its output), fp6_inv's t (3 Fp2),
 # fp2_inv's input d and its norm, inverted in place, then the Frobenius
-# constants FROB6_C1, FROB6_C2, FROB12_C1.
+# constants FROB6_C1, FROB6_C2, FROB12_C1. K11: u (and the output), v,
+# then the same Frobenius constants.
 POW_ACC, POW_BASE = 0, 12
 MIL_F, MIL_T, MIL_XP, MIL_YP, MIL_XQ, MIL_YQ = 0, 12, 18, 19, 20, 22
 N_FIXED = 24
 EXP_F, EXP_T, EXP_D, EXP_N, EXP_C = 0, 12, 18, 20, 21
 EXP_FIXED = 27
+COMB_U, COMB_V, COMB_C = 0, 12, 24
+COMB_FIXED = 30
 
 # Program indices: K10's pow_x_programs(), K8's miller_programs(), K9's
 # easy_exp_programs().
@@ -503,6 +506,38 @@ def easy_exp_programs() -> tuple[Program, ...]:
             _program("easy_back", _easy_back, EXP_FIXED))
 
 
+def _comb_inputs():
+    consts = tuple(_fixed(COMB_C + 2 * i, (2,)) for i in range(3))
+    return _fp12(COMB_U), _fp12(COMB_V), consts
+
+
+def _comb_b(w: _Tower):
+    u, v, consts = _comb_inputs()
+    return _outputs(COMB_U, w.fp12_mul(u, w.fp12_frobenius(v, *consts)))
+
+
+def _comb_c(w: _Tower):
+    u, v, consts = _comb_inputs()
+    v2 = w.fp12_frobenius(w.fp12_frobenius(v, *consts), *consts)
+    return _outputs(COMB_U, w.fp12_mul(w.fp12_mul(u, v2), w.fp12_conj(v)))
+
+
+def _comb_final(w: _Tower):
+    u, v, _ = _comb_inputs()
+    return _outputs(COMB_U, w.fp12_mul(w.fp12_mul(u, w.fp12_sqr(v)), v))
+
+
+_COMB_BODIES = {"b": _comb_b, "c": _comb_c, "final": _comb_final}
+
+
+@functools.cache
+def comb_program(mode: str) -> Program:
+    """K11's one step in ``mode``, in ``tkernel_calls.comb_plain``'s
+    expression order: b = u frob(v); c = (u frob(frob(v))) conj(v);
+    final = (u v^2) v; the result in u's slots."""
+    return _program(f"comb_{mode}", _COMB_BODIES[mode], COMB_FIXED)
+
+
 def _x_steps(per_bit: int, per_one: int) -> list[int]:
     """Program ``per_bit`` for each bit of |x| below the leading one,
     ``per_one`` after each one bit."""
@@ -609,6 +644,24 @@ def easy_exp_plan() -> Plan:
     )
 
 
+@functools.cache
+def comb_plan(mode: str) -> Plan:
+    """K11 in ``mode`` on the inputs u and v (12 Fp per lane each) and, for
+    b and c, the shared Frobenius constants (:func:`easy_exp_consts`): one
+    step, the output in u's slots."""
+    loads = [(COMB_U + k, 0, 12, k) for k in range(12)]
+    loads += [(COMB_V + k, 1, 12, k) for k in range(12)]
+    if mode != "final":
+        loads += [(COMB_C + k, 2, 0, k) for k in range(6)]
+    return Plan(
+        name=f"comb_{mode}",
+        programs=(comb_program(mode),),
+        loads=tuple(loads),
+        steps=(0,),
+        stores=tuple((COMB_U + k, False) for k in range(12)),
+    )
+
+
 _EXP_CONSTS = np.concatenate([FROB6_C1, FROB6_C2, FROB12_C1])
 
 
@@ -695,6 +748,13 @@ def easy_exp_steps(f: torch.Tensor) -> torch.Tensor:
     """K9's plan on tensors: f^((p^6-1)(p^2+1)) with the divstep
     inversion's representative (f: Fp12 [n, 2, 3, 2, 48])."""
     out = run_plan(easy_exp_plan(), (f, easy_exp_consts(f.device)))
+    return out.reshape(-1, 2, 3, 2, field.N_LIMBS)
+
+
+def comb_steps(u: torch.Tensor, v: torch.Tensor, mode: str) -> torch.Tensor:
+    """K11's plan on tensors: the combination ``mode`` of u and v (Fp12
+    [n, 2, 3, 2, 48])."""
+    out = run_plan(comb_plan(mode), (u, v, easy_exp_consts(u.device)))
     return out.reshape(-1, 2, 3, 2, field.N_LIMBS)
 
 

@@ -15,7 +15,9 @@ list, one masked mixed addition per bucket, with no conflicts by
 construction. The device then runs three chains:
 
 * K5, accumulate: L rounds of ``pt_add_mixed`` into a 256-lane accumulator
-  (lanes 240-255 pad the bucket axis and stay at infinity);
+  (lanes 240-255 pad the bucket axis and stay at infinity); on the card a
+  deep bucket is cut into segments summed side by side and joined
+  (:func:`accum_segments_plain`: the same points, other limbs);
 * K6, tree: two stride-16 shift-add trees weight each bucket by its digit,
   T[w] = sum_d d B[d, w] in lanes 0-15 (the sum-of-suffix-sums identity);
 * K7, Horner: sum_w 16^w T[w] in lane 0, four doublings and one addition
@@ -32,6 +34,7 @@ other, and importing this module builds nothing.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -175,6 +178,71 @@ def accum_plain(sx, sy, idx, valid):
     return acc
 
 
+def segment_bounds(valid, k: int):
+    """K5's cut of each bucket into k segments (csrc/msm.cu segment_sum):
+    valid bool [L, 240] -> (r0, r1, want), each int64 [k, 256]. Segment j
+    of a bucket with c valid rounds holds its valid rounds lo .. hi - 1 in
+    order, lo = ceil(j c / k), hi = ceil((j + 1) c / k), ``want`` of them,
+    and the rounds [r0, r1): from the one after valid round lo - 1 (0 when
+    lo = 0) to valid round hi - 1, the last segment to L. The segments cut
+    [0, L) into k runs; the pad lanes 240-255 (no valid round) lie wholly
+    in the last."""
+    L = valid.shape[0]
+    dev = valid.device
+    v = torch.cat([valid, torch.zeros(L, _LANES - N_BUCKETS, dtype=torch.bool,
+                                      device=dev)], 1)
+    c = v.sum(0)
+    j = torch.arange(k, device=dev)[:, None]
+    lo, hi = (j * c + k - 1) // k, ((j + 1) * c + k - 1) // k
+    cum = v.long().cumsum(0)  # valid rounds in [0, r]
+
+    def after(m):  # the round after valid round m - 1, 0 for m = 0
+        n = (cum[None] < m[:, None]).sum(1)  # rounds before valid round m - 1
+        return torch.where(m > 0, n + 1, torch.zeros_like(n))
+
+    r0 = after(lo)
+    r1 = torch.where(j == k - 1, torch.full_like(lo, L), after(hi))
+    return r0, r1, hi - lo
+
+
+def accum_segments_plain(sx, sy, idx, valid, k: int):
+    """What K5 computes with its buckets cut into k segments (k a power of
+    two): each segment of :func:`segment_bounds` runs
+    :func:`accum_plain`'s rounds over its rounds [r0, r1) from (one, one,
+    zero), then each bucket's k sums are joined by :func:`_add` in a tree,
+    s[a] = s[a] + s[a + step] for step = 1, 2, .. k / 2. The same points
+    as ``accum_plain`` (equal at canonical affine), other Jacobian limbs
+    where k > 1; k = 1 is ``accum_plain`` limb for limb."""
+    S, L = sx.shape[0], idx.shape[0]
+    dev = sx.device
+    r0, r1, _ = (t.reshape(-1) for t in segment_bounds(valid, k))
+    pad = _LANES - N_BUCKETS
+    zero = torch.zeros(1, *_FP2, dtype=sx.dtype, device=dev)
+    sx, sy = torch.cat([sx, zero]), torch.cat([sy, zero])  # row S: the pad
+    idx = torch.cat([idx.long(), torch.full((L, pad), S, dtype=torch.long, device=dev)], 1)
+    valid = torch.cat([valid, torch.zeros(L, pad, dtype=torch.bool, device=dev)], 1)
+    lane = torch.arange(_LANES, device=dev).repeat(k)  # segment-major
+    acc = tuple(c.contiguous() for c in pt_infinity(FP2_OPS, (k * _LANES,), dev))
+    span = int((r1 - r0).max()) if L else 0
+    for t in range(span):
+        live = r0 + t < r1
+        r = torch.where(live, r0 + t, torch.zeros_like(r0))
+        i = idx[r, lane]
+        new = _add_mixed(acc, sx[i], sy[i], valid[r, lane] & live)
+        acc = tuple(torch.where(live[:, None, None], a, b) for a, b in zip(new, acc))
+    s = tuple(c.reshape(k, _LANES, *_FP2) for c in acc)
+    step = 1
+    while step < k:
+        lhs = tuple(c[0::2 * step].reshape(-1, *_FP2) for c in s)
+        rhs = tuple(c[step::2 * step].reshape(-1, *_FP2) for c in s)
+        out = _add(lhs, rhs)
+        s = tuple(c.clone() for c in s)
+        for c, o in zip(s, out):
+            c[0::2 * step] = o.reshape(-1, _LANES, *_FP2)
+        step *= 2
+    return tuple(c[0] for c in s)
+
+
 def _shift_down(c, sh: int):
     """Lane i <- lane i + sh; the top sh lanes become all-zero limbs."""
     return torch.cat([c[sh:], torch.zeros_like(c[:sh])])
@@ -218,12 +286,20 @@ def _lanes256(kernel, P):
     return X, Y, Z
 
 
+def accum_segments(L: int) -> int:
+    """The segments per bucket that K5's launch takes for L rounds, each
+    summed on a group of 8 threads (csrc/msm.cu accum_segments)."""
+    return K5.library.load().lh_msm_accum_segments(ctypes.c_int(L))
+
+
 def accumulate(sx, sy, idx, valid):
     """Kernel K5: the bucket accumulator from affine signatures sx, sy
     [S, 2, 48] and the schedule idx int32 / valid bool [L, 240] ->
-    Jacobian (X, Y, Z) of [256, 2, 48] (plain: :func:`accum_plain`). The
-    kernel gathers sx[idx] itself; an index outside [0, S) stops it with a
-    device fault."""
+    Jacobian (X, Y, Z) of [256, 2, 48] (plain: :func:`accum_plain`; the
+    kernel's limbs are :func:`accum_segments_plain`'s at the segments of
+    :func:`accum_segments`, the same points). The kernel gathers sx[idx]
+    itself; an index outside [0, S) in any slot stops it with a device
+    fault."""
     if _on_cpu(sx, sy, idx, valid):
         return accum_plain(sx, sy, idx, valid)
     (sx, sy), S = _checked(K5, [(sx, torch.int32, _FP2), (sy, torch.int32, _FP2)])

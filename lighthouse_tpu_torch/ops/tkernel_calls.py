@@ -9,7 +9,7 @@ exponentiation) as one program. Here each is a CUDA kernel under
 and K4 run a lane on a group of a warp's threads with the warp group law of
 ``csrc/warp_curve.cuh`` (the whole warp up to one lane per SM, several
 lanes per warp past that, and K4 one lane per thread past a few packed
-warps per SM), and K8-K10 one lane per block: the block runs the
+warps per SM), and K8-K11 one lane per block: the block runs the
 straight-line programs of ``ops/coop.py``, which the wrapper hands it (K9's
 with one divstep inversion between two programs).
 
@@ -298,14 +298,18 @@ def pow_x(f, xm1: bool):
 
 
 def comb(u, v, mode: str):
-    """Kernel K11 in mode b, c or final (plain: :func:`comb_plain`)."""
+    """Kernel K11 in mode b, c or final (plain: :func:`comb_plain`; its
+    plan's model ``coop.comb_steps`` gives the same limbs)."""
     if mode not in COMB_MODES:
         raise ValueError(f"unknown comb mode {mode!r}")
     if _on_cpu(u, v):
         return comb_plain(u, v, mode)
     (u, v), n = _checked(K11, [(u, torch.int32, _FP12), (v, torch.int32, _FP12)])
+    plan = coop.comb_plan(mode)
+    prog = coop.to_device(plan, u.device)
     out = _empty(n, _FP12, u)
-    _launch(K11, (u, v, out), (COMB_MODES.index(mode),), n)
+    _launch(K11, (u, v, coop.easy_exp_consts(u.device), prog, out),
+            (coop.shared_bytes(plan), prog.numel()), n)
     return out
 
 

@@ -397,12 +397,33 @@ def test_subgroup_full_kernel_matches_plain_and_fast():
         [True, False, True, False, True]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_comb_kernel_matches_plan_and_plain(lanes):
+    """K11, one block per lane on its mode's plan, raw-equal to the plan's
+    model and to comb_plain in each mode, counted once per launch."""
+    _card()
+    g1, g2 = g1_generator(), g2_generator()
+    px, py, pinf = _cuda(*points.g1_to_dev([g1.mul(k + 3) for k in range(lanes)]))
+    qx, qy, qinf = _cuda(*points.g2_to_dev([g2.mul(k + 6) for k in range(lanes)]))
+    f = tc.miller_loop_seg((px, py), pinf, (qx, qy), qinf)
+    g = tc.easy_exp_plain(f)
+    for mode in tc.COMB_MODES:
+        before = tc.K11.launches
+        got = tc.comb(f, g, mode)
+        assert tc.K11.launches == before + 1
+        assert _same(got, coop.comb_steps(f, g, mode))
+        assert _same(got, tc.comb_plain(f, g, mode))
+
+
 # ------------------------------------------------------- the MSM kernels
 # K5 (accumulate), K6 (tree) and K7 (Horner) against their plain versions on
 # 8 sets with the edge cases: a duplicate signature whose mixed addition
 # doubles, S and -S cancelling in a bucket before a further addition, empty
-# buckets, a skipped set; and with every set skipped. K7 also on windows
-# that take every leg of the complete addition.
+# buckets, a skipped set; and with every set skipped. K5 raw against its
+# segment model at the launch's segments (accum_plain itself unsplit) and
+# against accum_plain at canonical affine, also at each segment count. K7
+# also on windows that take every leg of the complete addition.
 
 MSM_R = np.array([
     0x1234567890ABCDE5, 0x0FEDCBA987654325, 0x1111111111111171,
@@ -424,8 +445,11 @@ def test_msm_kernels_match_plain_and_oracle(skipped):
     sx, sy, _ = points.g2_to_dev(pts)
     sx, sy, idx, valid = _cuda(sx, sy, idx, valid)
     before = {k.name: k.launches for k in (msm.K5, msm.K6, msm.K7)}
-    B = msm.accumulate(sx, sy, idx, valid)
-    assert _same(B, msm.accum_plain(sx, sy, idx, valid))
+    got = msm.accumulate(sx, sy, idx, valid)
+    B = msm.accum_plain(sx, sy, idx, valid)
+    k = msm.accum_segments(idx.shape[0])
+    assert _same(got, msm.accum_segments_plain(sx, sy, idx, valid, k))
+    assert _same(tc.to_affine_g2(got), tc.to_affine_g2(B))
     T = msm.tree(B)
     assert _same(T, msm.tree_plain(B))
     H = msm.horner(T)
@@ -438,6 +462,40 @@ def test_msm_kernels_match_plain_and_oracle(skipped):
         if not sk:
             want = want.add(p.mul(int(k)))
     assert points.g2_from_dev(x, y, inf) == [want]
+
+
+# K5's segments per bucket, each on a group of 8 threads
+K5_SEGMENTS = [1, 2, 4, 8, 16, 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", K5_SEGMENTS, ids=lambda k: f"8x{k}")
+def test_accumulate_shapes_match_model(segments):
+    """K5 at a given number of segments through lh_msm_accum_shaped, on the
+    edge batch: raw-equal to its segment model and equal to accum_plain at
+    canonical affine."""
+    import ctypes
+
+    from lighthouse_tpu_torch.ops import _build
+
+    _card()
+    g = g2_generator()
+    pts = [g.mul(3 + 7 * i) for i in range(8)]
+    pts[1] = pts[0]
+    pts[3] = pts[2].neg()
+    idx, valid = msm.build_schedule(MSM_R, msm.max_rounds(8), np.arange(8) == 7)
+    sx, sy, _ = points.g2_to_dev(pts)
+    sx, sy, idx, valid = _cuda(sx, sy, idx, valid)
+    out = torch.empty(3, 256, 2, 48, dtype=torch.int32, device="cuda")
+    rc = msm.K5.library.load().lh_msm_accum_shaped(
+        ctypes.c_int(segments),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (sx, sy, idx, valid, *out)),
+        ctypes.c_int(idx.shape[0]), ctypes.c_int(8), ctypes.c_longlong(256),
+        ctypes.c_void_p(_build.current_stream(sx)))
+    assert rc == 0
+    got = tuple(out)
+    assert _same(got, msm.accum_segments_plain(sx, sy, idx, valid, segments))
+    assert _same(tc.to_affine_g2(got), tc.to_affine_g2(msm.accum_plain(sx, sy, idx, valid)))
 
 
 @pytest.mark.cuda
