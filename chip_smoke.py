@@ -31,29 +31,34 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    against the plain chain and the classic ``pairing.final_exponentiation``
    after canonical; kernel and plain times; for K8-K11 the product and add
    rounds per lane of their ``ops/coop.py`` programs, their shared memory
-   and the time per round; for K3 and K4 (a lane on a group of a warp's
-   threads on ``csrc/warp_curve.cuh``: the whole warp up to one lane per
-   SM, packed past that; K4 one thread per lane past a few packed warps per
-   SM) the launch shape, the rounds per lane, counted from the bits, and
-   the time per round; then K3 G1 and G2 at 128, 256, 512 and 2048 lanes in
-   both shapes, raw-equal and device-only, and K4 at 128-8192 lanes in its
-   three shapes, equal to its plain version and K15, device-only in three
-   alternating turns, each beside the shape the launch takes;
-5. the MSM kernels (K5 accumulate and K7 Horner on groups of a warp's
-   threads of ``csrc/warp_curve.cuh``, K6 tree) against their plain
+   and the time per round; for K3, K4 and K15 (a lane on a group of a
+   warp's threads on ``csrc/warp_curve.cuh``: the whole warp up to one
+   lane per SM, packed past that; K4 and K15 one thread per lane past a
+   few packed warps per SM) the launch shape, the rounds per lane, counted
+   from the bits, and the time per round; then K3 G1 and G2 at 128, 256,
+   512 and 2048 lanes in both shapes, raw-equal and device-only, K4 at
+   128-8192 lanes in its three shapes, equal to its plain version and K15,
+   and K15 (the NAF of r) in the same three shapes at 128, 396, 2048,
+   6336 and 8192 lanes, equal to its plain version and K4, each
+   device-only in three alternating turns beside the shape the launch
+   takes;
+5. the MSM kernels (K5 accumulate, K6 tree and K7 Horner on groups of
+   threads of ``csrc/warp_curve.cuh``) against their plain
    versions at the main path's shapes (the batch's 128 signatures, a
    schedule from seeded scalars, L = 48), on all 256 lanes (K5 in the
    launch's shape raw against ``msm.accum_segments_plain``, its segment
    model, and against ``accum_plain`` at canonical affine, its rounds on
-   the slowest group and time per round; K7 on lane 0, raw limbs, its
+   the slowest group and time per round; K6 raw, its rounds on the slowest
+   block and time per round; K7 on lane 0, raw limbs, its
    rounds and time per round), then on the edge batch (a duplicate
    signature whose mixed addition doubles, S and -S cancelling in a bucket
    before a further addition, an empty bucket), with every set skipped
-   (K5 there at each of its segment counts), and K7 on windows that take
-   every leg of the complete addition; the MSM point against the scan (K3
-   G2 and the S-leaf tree) and the oracle's sum r_i S_i at canonical
-   affine; kernel-only times of the MSM against the scan at S=2048, where
-   K3 G2 also runs raw-equal to its plain version at 2048 lanes; K5 at
+   (K5 there at each of its segment counts), K7 on windows and K6 on
+   buckets that take every leg of the complete addition; the MSM point
+   against the scan (K3 G2 and the S-leaf tree) and the oracle's sum
+   r_i S_i at canonical affine; kernel-only times of the MSM against the
+   scan at S=2048, where K3 G2 and K6 also run raw-equal to their plain
+   versions, and K6's device-only time there; K5 at
    S = 128, 512, 2048, 4096 and 8192 at each segment count (1-32 segments
    per bucket, each on a group of 8 threads), equal to ``accum_plain`` at
    canonical affine, device-only in five alternating turns, beside the
@@ -601,12 +606,33 @@ def gcd_inverse_ops() -> int:
     return batches * (batch * 29 + limbs * (22 + 30) + 10) + 300
 
 
-def subgroup_full_products(c: dict, P: int) -> int:
-    """K15's Fp products for one finite lane: a doubling per bit of the
-    curve order below its top, a complete addition on each one bit."""
+def order_naf() -> list[int]:
+    """The non-adjacent form of the curve order r, least significant digit
+    first: the chain K15 runs (csrc/subgroup_fast.cu kOrderNaf*)."""
     from lighthouse_tpu_torch.crypto.bls.constants import R
 
-    return (R.bit_length() - 1) * c["dbl_g2"] + (bin(R).count("1") - 1) * c["add_g2"]
+    digits, k = [], R
+    while k:
+        d = 2 - k % 4 if k % 2 else 0
+        digits.append(d)
+        k = (k - d) // 2
+    return digits
+
+
+def subgroup_full_chain() -> tuple[int, int]:
+    """(doublings, mixed additions) of K15 on one finite lane: a doubling
+    per digit of the NAF of r below its top, a mixed addition of Q or -Q on
+    each nonzero digit below it (255 and 59; the reference's binary chain
+    254 doublings and 133 complete additions)."""
+    digits = order_naf()
+    return len(digits) - 1, sum(1 for d in digits[:-1] if d)
+
+
+def subgroup_full_products(c: dict) -> int:
+    """K15's Fp products for one finite lane, on the chain it runs: the
+    least known work for its verdict."""
+    dbl, madd = subgroup_full_chain()
+    return dbl * c["dbl_g2"] + madd * c["madd_g2"]
 
 
 def msm_products(np, c: dict, valid) -> dict:
@@ -705,6 +731,24 @@ def scalar_mul_rounds(np, inf, bits, lanes: int = 1) -> int:
     n = bits.shape[0]
     adds = np.pad(adds, ((0, -n % lanes), (0, 0))).reshape(-1, lanes, bits.shape[1])
     return int(bits.shape[1] * DBL_ROUNDS + adds.any(axis=1).sum(axis=1).max() * ADD_ROUNDS)
+
+
+def tree_rounds(np, valid) -> int:
+    """Rounds of K6's slowest block (csrc/msm.cu: a block per window, its
+    16 lanes meeting at __syncthreads after each shift-add step): per step,
+    a complete addition's 6 where a lane of the window adds two finite
+    points, none where every lane returns at once; with the infinity
+    pattern msm_products counts (points in general position)."""
+    counts = np.zeros(256, np.int64)
+    counts[:240] = valid.sum(axis=0)
+    inf = (counts == 0).reshape(16, 16)  # [row j, window w]: lane j * 16 + w
+    rounds = np.zeros(16, np.int64)
+    for _ in range(2):
+        for s in (1, 2, 4, 8):
+            q_inf = np.concatenate([inf[s:], np.ones((s, 16), bool)])
+            rounds += (~inf & ~q_inf).any(axis=0) * ADD_ROUNDS
+            inf = inf & q_inf
+    return int(rounds.max())
 
 
 def horner_rounds(c: dict, k7_products: int) -> int:
@@ -814,8 +858,11 @@ def k3_lane_sweep(torch, np, sets, sizes=(128, 256, 512, 2048)) -> dict:
 
 
 # Rounds of K4 on a finite lane: 63 doublings, 5 mixed additions, and
-# psi with the comparison in 3 (csrc/subgroup_fast.cu).
+# psi with the comparison in 3 (csrc/subgroup_fast.cu); of K15, the NAF
+# chain's doublings and mixed additions.
 K4_ROUNDS = 63 * DBL_ROUNDS + 5 * ADD_ROUNDS + 3
+K15_ROUNDS = (subgroup_full_chain()[0] * DBL_ROUNDS
+              + subgroup_full_chain()[1] * ADD_ROUNDS)
 # K4's lanes per warp: one warp per lane, packed, one thread per lane.
 K4_SHAPES = {"one_warp": 1, "packed": 4, "one_thread": 32}
 
@@ -843,8 +890,9 @@ def k4_lanes(np, sets):
     return x, y, inf
 
 
-def k4_lanes_per_warp(tc, n: int) -> int:
-    """The lanes per warp that K4's launch takes for n lanes on this card."""
+def subgroup_lanes_per_warp(tc, n: int) -> int:
+    """The lanes per warp that K4's and K15's launch takes for n lanes on
+    this card."""
     import ctypes
 
     lanes = ctypes.c_int(0)
@@ -855,68 +903,86 @@ def k4_lanes_per_warp(tc, n: int) -> int:
     return lanes.value
 
 
-def k4_shaped(torch, tc, lanes: int, x, y, inf):
-    """K4 at a given lanes per warp, through the library's
-    lh_subgroup_fast_shaped (not counted: the smoke's comparison of
+def subgroup_shaped(torch, tc, check: str, lanes: int, x, y, inf):
+    """K4 (check "fast") or K15 ("full") at a given lanes per warp, through
+    the library's shaped entry (not counted: the smoke's comparison of
     shapes)."""
     import ctypes
 
     from lighthouse_tpu_torch.ops import _build
 
+    entry = f"lh_subgroup_{check}_shaped"
     out = torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
-    rc = tc.K4.library.load().lh_subgroup_fast_shaped(
+    rc = getattr(tc.K4.library.load(), entry)(
         *(ctypes.c_void_p(t.data_ptr()) for t in (x, y, inf, out)),
         ctypes.c_int(lanes), ctypes.c_longlong(x.shape[0]),
         ctypes.c_void_p(_build.current_stream(x)))
     if rc:
-        raise RuntimeError(f"lh_subgroup_fast_shaped({lanes}): CUDA error {rc}")
+        raise RuntimeError(f"{entry}({lanes}): CUDA error {rc}")
     return out
 
 
-def k4_lane_sweep(torch, np, sets, sizes=(128, 256, 384, 512, 1024, 2048, 4096, 6144, 8192),
-                  turns: int = 3) -> dict:
-    """K4 at n lanes (k4_lanes repeated: 3/4 in G2, the rest outside G2 or
-    at infinity, as a verify of n sets with some bad signatures gives it) in
-    each launch shape: verdicts equal to the plain version's and to K15's;
-    device-only in ``turns`` turns, the shapes in alternating order, the
-    median kept beside the spread; the shape the launch takes for n, the
-    rounds of the slowest warp and the time per round (for one thread per
-    lane: its Fp products in a row and the time per product). Returns
-    {n: {...}}."""
+# The lane counts of the subgroup checks' sweeps on 132 SMs: K4's about its
+# crossovers (3 lanes per SM, 12 packed warps per SM), K15's about its own
+# (3 lanes per SM; 8, 10, 11 and 12 packed warps per SM).
+K4_SWEEP = (128, 256, 384, 512, 1024, 2048, 4096, 6144, 8192)
+K15_SWEEP = (128, 396, 2048, 6336, 8192)
+
+
+def subgroup_lane_sweep(torch, np, sets, check: str, sizes, turns: int = 3) -> dict:
+    """K4 (check "fast") or K15 ("full") at n lanes (k4_lanes repeated:
+    3/4 in G2, the rest outside G2 or at infinity, as a verify of n sets
+    with some bad signatures gives it) in each launch shape: verdicts equal
+    to its plain version's (K15's: pt_subgroup_check, the binary chain) and
+    to the other check's; device-only in ``turns`` turns, the shapes in
+    alternating order, the median kept beside the spread; the shape the
+    launch takes for n, the rounds of a finite lane and the time per round
+    (for one thread per lane: its Fp products in a row and the time per
+    product). Returns {n: {...}}."""
     from lighthouse_tpu_torch.crypto.bls.constants import P
     from lighthouse_tpu_torch.ops import points
     from lighthouse_tpu_torch.ops import tkernel_calls as tc
 
-    chain = subgroup_fast_products(fp_product_counts(P))
+    F = points.FP2_OPS
+    c = fp_product_counts(P)
+    if check == "full":
+        label, other, kernel, peer = "K15", "K4", tc.subgroup_check_g2, tc.subgroup_check_g2_fast
+        chain, rounds = subgroup_full_products(c), K15_ROUNDS
+
+        def plain(x, y, inf):
+            return points.pt_subgroup_check(F, points.pt_from_affine(F, x, y, inf))
+    else:
+        label, other, kernel, peer = "K4", "K15", tc.subgroup_check_g2_fast, tc.subgroup_check_g2
+        chain, rounds = subgroup_fast_products(c), K4_ROUNDS
+        plain = points.subgroup_check_g2_fast
     base = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in k4_lanes(np, sets)]
     res = {}
     for n in sizes:
         rows = torch.arange(n, device="cuda") % base[0].shape[0]
         x, y, inf = (t[rows].contiguous() for t in base)
-        want = points.subgroup_check_g2_fast(x, y, inf)
-        full = tc.subgroup_check_g2(x, y, inf)
-        if not torch.equal(want, full):
-            raise AssertionError(f"K4's plain version disagrees with K15 at {n} lanes")
-        if not torch.equal(tc.subgroup_check_g2_fast(x, y, inf), want):
-            raise AssertionError(f"K4 wrapper at {n} lanes != its plain version")
+        want = plain(x, y, inf)
+        if not torch.equal(peer(x, y, inf), want):
+            raise AssertionError(f"{other} disagrees with {label}'s plain version at {n} lanes")
+        if not torch.equal(kernel(x, y, inf), want):
+            raise AssertionError(f"{label} wrapper at {n} lanes != its plain version")
         runs = {}
         for shape, lanes in K4_SHAPES.items():
             def run(lanes=lanes):
-                return k4_shaped(torch, tc, lanes, x, y, inf)
+                return subgroup_shaped(torch, tc, check, lanes, x, y, inf)
             if not torch.equal(run(), want):
-                raise AssertionError(f"K4 at {n} lanes, {lanes} per warp, != its "
-                                     "plain version and K15")
+                raise AssertionError(f"{label} at {n} lanes, {lanes} per warp, != its "
+                                     f"plain version and {other}")
             runs[shape] = run
         times = {shape: [] for shape in K4_SHAPES}
         for turn in range(turns):
             order = list(K4_SHAPES) if turn % 2 == 0 else list(K4_SHAPES)[::-1]
             for shape in order:
                 times[shape].append(device_ms(torch, runs[shape], DEVICE_REPS, warmup=1))
-        auto = k4_lanes_per_warp(tc, n)
+        auto = subgroup_lanes_per_warp(tc, n)
         row = {"lanes_per_warp": auto}
         for shape, lanes in K4_SHAPES.items():
             ms = statistics.median(times[shape])
-            steps = chain if lanes == 32 else K4_ROUNDS
+            steps = chain if lanes == 32 else rounds
             row[shape] = {"lanes_per_warp": lanes, "device_ms": ms,
                           "device_ms_turns": times[shape],
                           "products_in_a_row" if lanes == 32 else "rounds": steps,
@@ -925,7 +991,7 @@ def k4_lane_sweep(torch, np, sets, sizes=(128, 256, 384, 512, 1024, 2048, 4096, 
         fastest = min(K4_SHAPES, key=lambda k: row[k]["device_ms"])
         row["fastest"] = K4_SHAPES[fastest]
         res[n] = row
-        log(f"K4 at {n} lanes, each shape equal to its plain version and K15; "
+        log(f"{label} at {n} lanes, each shape equal to its plain version and {other}; "
             f"the launch takes {auto} per warp, the fastest median measured "
             f"{K4_SHAPES[fastest]}; device-only: {json.dumps(row)}")
     return res
@@ -1135,15 +1201,20 @@ def check_fused_kernels(torch, np, sets, hashes) -> dict:
         int((~sinf).sum()) * k4_products, n * (2 * 384 + 2))
     warp_report(torch, out[tc.K4.name], f"K4 {n} lanes", K4_ROUNDS, k4_products,
                 lambda: tc.subgroup_check_g2_fast(sx, sy, sinf_t),
-                warp_shape(k4_lanes_per_warp(tc, n)))
-    # K15, the full-order check [r]Q == inf, on the same lanes: 254
-    # doublings and an addition on each of r's 133 one bits below its top
+                warp_shape(subgroup_lanes_per_warp(tc, n)))
+    # K15, the full-order check [r]Q == inf, on the same lanes: the NAF
+    # of r, 255 doublings and 59 mixed additions of Q or -Q (the plain
+    # version's binary chain: 254 doublings, 133 complete additions)
+    k15_products = subgroup_full_products(c)
     out[tc.K15.name] = check_kernel(
         torch, tc.K15, f"K15 subgroup_full {n} lanes",
         lambda: tc.subgroup_check_g2(sx, sy, sinf_t),
         lambda: points.pt_subgroup_check(
             FP2_OPS, points.pt_from_affine(FP2_OPS, sx, sy, sinf_t)),
-        int((~sinf).sum()) * subgroup_full_products(c, P), n * (2 * 384 + 2))
+        int((~sinf).sum()) * k15_products, n * (2 * 384 + 2))
+    warp_report(torch, out[tc.K15.name], f"K15 {n} lanes", K15_ROUNDS, k15_products,
+                lambda: tc.subgroup_check_g2(sx, sy, sinf_t),
+                warp_shape(subgroup_lanes_per_warp(tc, n)))
     fast = tc.subgroup_check_g2_fast(sx, sy, sinf_t)
     before = tc.K15.launches
     full = tc.subgroup_check_g2(sx, sy, sinf_t)
@@ -1329,6 +1400,45 @@ def horner_edge_windows(torch):
     return T
 
 
+def tree_edge_buckets(torch):
+    """Bucket lanes (X, Y, Z) [256, 2, 48] on which K6 takes every leg of
+    the complete addition: window 0 wholly at infinity (a point's X and Y
+    under Z = 0), window 1 with five buckets at infinity, window 2 with
+    equal lanes (rows 0 and 1 the same limbs, rows 2 and 3 the same point
+    under another Z: step 1 doubles), window 3 with opposite lanes (rows 1
+    and 5 the negations of rows 0 and 4, row 5 under another Z: step 1
+    cancels to Z = 0), the other windows seeded points; the pad lanes
+    (row 15) all-zero limbs. Row j of window w is lane j * 16 + w."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.crypto.bls.curve import g2_generator
+    from lighthouse_tpu_torch.ops import points
+
+    def lane(w, j):
+        return j * 16 + w
+
+    g = g2_generator()
+    rng = np.random.default_rng(11)
+    pts = [g.mul(int(k)) for k in rng.integers(2, 1 << 30, 240)]
+    pts[lane(2, 1)] = pts[lane(2, 0)]
+    pts[lane(2, 3)] = pts[lane(2, 2)]
+    pts[lane(3, 1)] = pts[lane(3, 0)].neg()
+    pts[lane(3, 5)] = pts[lane(3, 4)].neg()
+    x, y, _ = points.g2_to_dev(pts)
+    F = points.FP2_OPS
+    X, Y, Z = (c.clone() for c in points.pt_from_affine(
+        F, torch.from_numpy(x), torch.from_numpy(y)))
+    for i in (lane(2, 3), lane(3, 5)):  # (x z^2, y z^3, z)
+        z = X[i + 1:i + 2]
+        z2 = F.sqr(z)
+        X[i:i + 1], Y[i:i + 1], Z[i:i + 1] = (
+            F.mul(X[i:i + 1], z2), F.mul(Y[i:i + 1], F.mul(z2, z)), z)
+    for i in [lane(0, j) for j in range(15)] + [lane(1, j) for j in (1, 3, 4, 5, 14)]:
+        Z[i] = 0
+    pad = torch.zeros(16, 2, 48, dtype=torch.int32)
+    return tuple(torch.cat([c, pad]).contiguous() for c in (X, Y, Z))
+
+
 # K5's segments per bucket, each on a group of K5_GROUP threads
 # (csrc/msm.cu kPackedGroup), every block within 256 threads
 K5_GROUP = 8
@@ -1502,7 +1612,9 @@ def check_msm_kernels(torch, np, sets) -> dict:
     out[msm.K6.name] = check_kernel(
         torch, msm.K6, "K6 msm_tree 256 lanes",
         lambda: msm.tree(B), lambda: msm.tree_plain(B),
-        work["msm_tree"], 2 * 3 * 256 * 384)
+        work["msm_tree"], 2 * 3 * 256 * 384, raw_only=True)
+    warp_report(torch, out[msm.K6.name], "K6", tree_rounds(np, valid), work["msm_tree"],
+                lambda: msm.tree(B), "a block per window, a lane on a group of 16 threads")
     T = msm.tree_plain(B)
     out[msm.K7.name] = check_kernel(
         torch, msm.K7, "K7 msm_horner lane 0",
@@ -1545,7 +1657,7 @@ def check_msm_kernels(torch, np, sets) -> dict:
         check_kernel(torch, msm.K5, f"K5 {label}", lambda: msm.accumulate(ex, ey, ei, ev),
                      lambda: models[k], 0, 0, time_it=False, raw_only=True)
         check_kernel(torch, msm.K6, f"K6 {label}", lambda: msm.tree(EB),
-                     lambda: msm.tree_plain(EB), 0, 0, time_it=False)
+                     lambda: msm.tree_plain(EB), 0, 0, time_it=False, raw_only=True)
         ET = msm.tree_plain(EB)
         check_kernel(torch, msm.K7, f"K7 {label}", lambda: msm.horner(ET),
                      lambda: msm.horner_plain(ET), 0, 0, time_it=False,
@@ -1561,6 +1673,9 @@ def check_msm_kernels(torch, np, sets) -> dict:
     WT = tuple(t.to(dev) for t in horner_edge_windows(torch))
     check_kernel(torch, msm.K7, "K7 edge windows", lambda: msm.horner(WT),
                  lambda: msm.horner_plain(WT), 0, 0, time_it=False, raw_only=True)
+    EB = tuple(t.to(dev) for t in tree_edge_buckets(torch))
+    check_kernel(torch, msm.K6, "K6 edge buckets", lambda: msm.tree(EB),
+                 lambda: msm.tree_plain(EB), 0, 0, time_it=False, raw_only=True)
     return out
 
 
@@ -1604,11 +1719,14 @@ def msm_against_scan(torch, np, sets, n: int) -> dict:
             got, points.pt_scalar_mul_bits(points.FP2_OPS, (sx, sy), none, bits))):
         raise AssertionError(f"K3 G2 != pt_scalar_mul_bits in its raw limbs at {n} lanes")
     B = msm.accumulate(sx, sy, ti, tv)
+    if not all(torch.equal(x, y) for x, y in zip(msm.tree(B), msm.tree_plain(B))):
+        raise AssertionError(f"K6 != tree_plain in its raw limbs at S={n}")
     res = {
         "S": n, "L": L, "bucket_max": int(valid.sum(0).max()),
         "msm_ms": median_ms(torch, run_msm, KERNEL_REPS, warmup=1),
         "k5_ms": median_ms(torch, lambda: msm.accumulate(sx, sy, ti, tv), KERNEL_REPS, warmup=1),
         "k6_ms": median_ms(torch, lambda: msm.tree(B), KERNEL_REPS, warmup=1),
+        "k6_device_ms": device_ms(torch, lambda: msm.tree(B), DEVICE_REPS, warmup=1),
         "k7_ms": median_ms(torch, lambda: msm.horner(B), KERNEL_REPS, warmup=1),
         "scan_ms": median_ms(torch, run_scan, KERNEL_REPS, warmup=1),
         "k3_g2_ms": median_ms(torch, lambda: tc.scalar_mul_g2(sx, sy, none, bits),
@@ -1617,8 +1735,8 @@ def msm_against_scan(torch, np, sets, n: int) -> dict:
                                      DEVICE_REPS, warmup=1),
     }
     log(f"MSM vs scan at S={n} (kernel-only, CUDA events, median of "
-        f"{KERNEL_REPS}; K3 G2 also device-only), equal at canonical affine, "
-        f"K3 G2 raw-equal to its plain version: {json.dumps(res)}")
+        f"{KERNEL_REPS}; K3 G2 and K6 also device-only), equal at canonical affine, "
+        f"K3 G2 and K6 raw-equal to their plain versions: {json.dumps(res)}")
     return res
 
 
@@ -1868,11 +1986,13 @@ def main() -> int:
 
     with GpuSampler() as gpu:
         fused = check_fused_kernels(torch, np, sets, hashes)
-        fused.update(check_msm_kernels(torch, np, sets))
+        msm_entries = check_msm_kernels(torch, np, sets)
+        fused.update(msm_entries)
         wide = msm_against_scan(torch, np, sets, 2048)
         k5_sweep = k5_shape_sweep(torch, np, sets)
         sweep = k3_lane_sweep(torch, np, sets)
-        k4_sweep = k4_lane_sweep(torch, np, sets)
+        k4_sweep = subgroup_lane_sweep(torch, np, sets, "fast", K4_SWEEP)
+        k15_sweep = subgroup_lane_sweep(torch, np, sets, "full", K15_SWEEP)
         fused.update(check_hash_kernels(torch, np, sets, hashes))
     clock_mhz = gpu.summary["sm_clock_mhz_max"]
     int_rate = INT_MADS_PER_CLOCK * clock_mhz * 1e6
@@ -1983,7 +2103,8 @@ def main() -> int:
         f"{json.dumps({k: round(v, 4) for k, v in per_kernel.items()})}); "
         f"~{per_call_total:.3f} ms from the per-call times")
     log(f"MSM against the scan at S={wide['S']}: MSM {wide['msm_ms']:.4f} ms "
-        f"(K5 {wide['k5_ms']:.4f}, K6 {wide['k6_ms']:.4f}, K7 {wide['k7_ms']:.4f}), "
+        f"(K5 {wide['k5_ms']:.4f}, K6 {wide['k6_ms']:.4f}, device-only "
+        f"{wide['k6_device_ms']:.4f}, K7 {wide['k7_ms']:.4f}), "
         f"scan {wide['scan_ms']:.4f} ms (K3 G2 {wide['k3_g2_ms']:.4f})")
     log("K5 device-only ms at S sets by shape (threads per group x segments; "
         "the launch's shape, the fastest measured): " + "; ".join(
@@ -1999,6 +2120,10 @@ def main() -> int:
         "per lane (the launch's lanes per warp, the fastest measured): " + ", ".join(
             f"{n} " + " / ".join(f"{v[k]['device_ms']:.4f}" for k in K4_SHAPES)
             + f" ({v['lanes_per_warp']}, {v['fastest']})" for n, v in k4_sweep.items()))
+    log("K15 device-only ms at n lanes, one warp per lane / packed / one thread "
+        "per lane (the launch's lanes per warp, the fastest measured): " + ", ".join(
+            f"{n} " + " / ".join(f"{v[k]['device_ms']:.4f}" for k in K4_SHAPES)
+            + f" ({v['lanes_per_warp']}, {v['fastest']})" for n, v in k15_sweep.items()))
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(nvidia_smi_line(), flush=True)

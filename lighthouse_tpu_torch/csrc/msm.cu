@@ -7,9 +7,9 @@
 // through _f3_call (pallas_call at :269). Each computes what its plain
 // version in ops/msm.py computes, on the same 256-lane layout (bucket lane
 // = (digit - 1) * 16 + window, lanes 240-255 padding), with the group law of
-// curve.cuh (K6) or warp_curve.cuh (K5, K7), which follow ops/points.py
-// case for case; the raw limbs equal the plain versions' (K5 cut into
-// segments: those of ops/msm.py accum_segments_plain, the same points).
+// warp_curve.cuh, which follows ops/points.py case for case; the raw limbs
+// equal the plain versions' (K5 cut into segments: those of ops/msm.py
+// accum_segments_plain, the same points).
 //
 // What bounds them on an H100: integer multiplies in dependent chains. At
 // S = 128 sets K5 runs L = 48 rounds, of which a bucket holds ~8 points on
@@ -29,9 +29,13 @@
 // rounds), each summed on its own group of 8 threads (accum_segments),
 // and the block joins the k sums in a tree of log2 k complete additions. K5
 // gathers its points from the int32 schedule itself (no [L, 240] copy of
-// the points). K6 runs one thread per bucket lane, one block of 256
-// threads that trade their lanes through 72 KiB of shared memory between
-// the eight shift-add steps. K7, the one lane-0 chain the reference reads,
+// the points). K6's shifts (16, 32, 64, 128 lanes) never leave a window
+// (lane j * 16 + w reads lane (j + 2^s) * 16 + w), so it runs one block
+// per window, 16 blocks on 16 SMs: each of the window's 16 lanes on a group
+// of 16 threads of warp_curve.cuh's complete addition (6 rounds, the widest
+// of 12 products), the window's points in shared memory between the eight
+// steps; 48 rounds on the deepest lane where one thread per lane ran ~340
+// products in a row on one SM. K7, the one lane-0 chain the reference reads,
 // runs on one warp with warp_curve.cuh's group law: a doubling's products
 // in 4 rounds, an addition's in 6; 330 rounds where one thread ran ~1,600
 // products in a row. The windows keep the plain version's Horner order
@@ -245,32 +249,49 @@ void accum_launch(const void* sx, const void* sy, const void* idx,
       (const uint8_t*)valid, (int4*)oX, (int4*)oY, (int4*)oZ, L, S, k);
 }
 
+// ------------------------------------------------------------------ K6
+
+// A window's lanes, and the threads per lane: the complete addition's
+// widest round (its 4 Fp2 products, 12 Fp products) in one pass. On an
+// H100, groups of 4 and 8 threads (a round in 3 and 2 passes) took 0.263
+// and 0.197 ms against 16's 0.153, at S = 128 and 2048 alike (the 16
+// blocks' work does not depend on S; PERF.md).
+constexpr int kWindowLanes = kLanes / kWindows;
+constexpr int kTreeThreads = 16;
+
 // K6: two passes of P = pt_add(P, shift_down(P, sh)) for sh = 16, 32, 64,
-// 128; lane i reads lane i + sh of the previous step from shared memory,
-// and the lanes shifted in from beyond 255 are all-zero limbs.
-__global__ void __launch_bounds__(kLanes, 1)
+// 128. Block w is window w: its lanes j * 16 + w, j = 0 .. 15 (digit j + 1;
+// j = 15 the pad lane 240 + w), lane j on the block's group j of
+// kTreeThreads threads; lane j reads lane j + sh / 16 of the previous step
+// from shared memory, and the lanes shifted in from beyond the window's
+// top (beyond lane 255) are all-zero limbs. A lane at infinity on either
+// side returns from pt_add with its whole group before its first round.
+__global__ void __launch_bounds__(kWindowLanes * kTreeThreads)
     msm_tree_kernel(const int4* __restrict__ bX, const int4* __restrict__ bY,
                     const int4* __restrict__ bZ, int4* __restrict__ oX,
                     int4* __restrict__ oY, int4* __restrict__ oZ) {
-  extern __shared__ int4 smem[];
-  Jac<Fp2>* lanes = reinterpret_cast<Jac<Fp2>*>(smem);
-  const int i = threadIdx.x;
-  Jac<Fp2> P = load_point(bX, bY, bZ, i);
-  lanes[i] = P;
+  __shared__ uint4 slots[kWindowLanes * kTreeThreads * kSlotVecs];
+  __shared__ uint4 lanes_raw[kWindowLanes * sizeof(Jac<Fp2>) / sizeof(uint4)];
+  Jac<Fp2>* lanes = reinterpret_cast<Jac<Fp2>*>(lanes_raw);
+  const Group<kTreeThreads> G = block_group<kTreeThreads>(slots);
+  const int j = threadIdx.x / kTreeThreads;
+  const int lane = j * kWindows + blockIdx.x;
+  Jac<Fp2> P = load_point(bX, bY, bZ, lane);
+  if (G.g == 0) lanes[j] = P;
   __syncthreads();
   const Fp2 z = zero(Fp2());
 #pragma unroll 1
   for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll 1
-    for (int sh = kWindows; sh < kLanes; sh <<= 1) {
-      const Jac<Fp2> Q = i + sh < kLanes ? lanes[i + sh] : Jac<Fp2>{z, z, z};
-      P = pt_add(P, Q);
+    for (int s = 1; s < kWindowLanes; s <<= 1) {
+      const Jac<Fp2> Q = j + s < kWindowLanes ? lanes[j + s] : Jac<Fp2>{z, z, z};
+      P = pt_add(G, P, Q);
       __syncthreads();  // every lane has read the previous step
-      lanes[i] = P;
+      if (G.g == 0) lanes[j] = P;
       __syncthreads();
     }
   }
-  store_point(oX, oY, oZ, i, P);
+  if (G.g == 0) store_point(oX, oY, oZ, lane, P);
 }
 
 // K7: acc = T[15]; for w = 14 .. 0: four doublings, then acc + T[w] (the
@@ -291,8 +312,6 @@ __global__ void __launch_bounds__(kWarpThreads)
   }
   if (threadIdx.x == 0) store_point(oX, oY, oZ, 0, acc);
 }
-
-constexpr int kTreeSmem = kLanes * (int)sizeof(Jac<Fp2>);  // 72 KiB
 
 }  // namespace
 
@@ -328,10 +347,7 @@ extern "C" int lh_msm_tree(const void* bX, const void* bY, const void* bZ,
                            void* oX, void* oY, void* oZ, long long n,
                            void* stream) {
   if (n != kLanes) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      msm_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTreeSmem);
-  if (err != cudaSuccess) return (int)err;
-  msm_tree_kernel<<<1, kLanes, kTreeSmem, (cudaStream_t)stream>>>(
+  msm_tree_kernel<<<kWindows, kWindowLanes * kTreeThreads, 0, (cudaStream_t)stream>>>(
       (const int4*)bX, (const int4*)bY, (const int4*)bZ, (int4*)oX,
       (int4*)oY, (int4*)oZ);
   return (int)cudaGetLastError();

@@ -1,7 +1,7 @@
 // The Jacobian group law on a group of threads of one warp (sm_90a), over
 // Fp (G1) and Fp2 (G2): the doubling, the complete addition, the mixed
-// addition, psi and the |x| walk. K3 (scalar_mul.cu), K7 (msm.cu) and
-// K12-K14 (htc.cuh) run on it.
+// addition, psi and the |x| walk. K3 (scalar_mul.cu), K4 and K15
+// (subgroup_fast.cu), K5-K7 (msm.cu) and K12-K14 (htc.cuh) run on it.
 //
 // A group is some threads of one warp that run one chain: every thread
 // holds every value of the chain and runs its additions; the Fp products

@@ -20,6 +20,7 @@ construction. The device then runs three chains:
   (:func:`accum_segments_plain`: the same points, other limbs);
 * K6, tree: two stride-16 shift-add trees weight each bucket by its digit,
   T[w] = sum_d d B[d, w] in lanes 0-15 (the sum-of-suffix-sums identity);
+  a shift never leaves a window, so the card runs one block per window;
 * K7, Horner: sum_w 16^w T[w] in lane 0, four doublings and one addition
   per window.
 
@@ -315,7 +316,8 @@ def accumulate(sx, sy, idx, valid):
 
 def tree(B):
     """Kernel K6: the bucket accumulator (X, Y, Z) [256, 2, 48] -> the
-    window sums T in lanes 0-15, the same shape (plain: :func:`tree_plain`)."""
+    window sums T in lanes 0-15, the same shape (plain: :func:`tree_plain`,
+    the same limbs on all 256 lanes)."""
     if _on_cpu(*B):
         return tree_plain(B)
     X, Y, Z = _lanes256(K6, B)

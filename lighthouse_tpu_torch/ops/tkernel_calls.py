@@ -5,11 +5,11 @@ Counterpart of ``lighthouse_tpu/ops/tkernel_calls.py``, whose Pallas kernels
 each run one long sequential chain of the verify (affine normalisation,
 RLC scalar multiplication, subgroup check, Miller loop, final
 exponentiation) as one program. Here each is a CUDA kernel under
-``lighthouse_tpu_torch/csrc/`` that runs the chain one lane per thread; K3
-and K4 run a lane on a group of a warp's threads with the warp group law of
-``csrc/warp_curve.cuh`` (the whole warp up to one lane per SM, several
-lanes per warp past that, and K4 one lane per thread past a few packed
-warps per SM), and K8-K11 one lane per block: the block runs the
+``lighthouse_tpu_torch/csrc/`` that runs the chain one lane per thread; K3,
+K4 and K15 run a lane on a group of a warp's threads with the warp group
+law of ``csrc/warp_curve.cuh`` (the whole warp up to one lane per SM,
+several lanes per warp past that, and K4 and K15 one lane per thread past a
+few packed warps per SM), and K8-K11 one lane per block: the block runs the
 straight-line programs of ``ops/coop.py``, which the wrapper hands it (K9's
 with one divstep inversion between two programs).
 
@@ -49,8 +49,7 @@ _FP12 = (2, 3, 2, 48)
 
 _LIBS = {
     stem: _build.CudaLibrary(f"{stem}.cu")
-    for stem in ("to_affine", "scalar_mul", "subgroup_fast", "subgroup",
-                 "miller", "final_exp")
+    for stem in ("to_affine", "scalar_mul", "subgroup_fast", "miller", "final_exp")
 }
 _SITE = "lighthouse_tpu/ops/tkernel_calls.py"
 
@@ -70,7 +69,7 @@ K2_G2 = _kernel("to_affine_g2", "to_affine", "267 _to_affine_kernel(g2=True)")
 K3_G1 = _kernel("scalar_mul_g1", "scalar_mul", "77 _scalar_mul_kernel(g2=False)")
 K3_G2 = _kernel("scalar_mul_g2", "scalar_mul", "77 _scalar_mul_kernel(g2=True)")
 K4 = _kernel("subgroup_fast", "subgroup_fast", "191 _subgroup_fast_kernel")
-K15 = _kernel("subgroup_full", "subgroup", "141 _subgroup_kernel")
+K15 = _kernel("subgroup_full", "subgroup_fast", "141 _subgroup_kernel")
 K8 = _kernel("miller", "miller", "326 _miller_kernel")
 K9 = _kernel("easy_exp", "final_exp", "390 _easy_exp_kernel")
 K10 = _kernel("pow_x", "final_exp", "398 _pow_kernel")
@@ -209,8 +208,8 @@ def subgroup_check_g2_fast(x, y, inf):
 def subgroup_check_g2(x, y, inf):
     """Kernel K15: [r]Q == infinity per lane, r the curve order -> bool [n];
     infinity passes (plain: ``points.pt_subgroup_check`` on
-    ``pt_from_affine``). The verify path runs K4; this is its full-order
-    counterpart."""
+    ``pt_from_affine``; the kernel runs the NAF of r, the same verdicts).
+    The verify path runs K4; this is its full-order counterpart."""
     if _on_cpu(x, y, inf):
         P = points.pt_from_affine(FP2_OPS, x, y, inf)
         return points.pt_subgroup_check(FP2_OPS, P)

@@ -88,12 +88,9 @@ static void warps(long long nb, F f) {
 }
 """
 
-# K3 and K7 on the warp harness. msm.cu's K6 (one block of 256 threads on
-# dynamic shared memory) compiles beside K7 but does not run here.
+# K3 and K7 on the warp harness. msm.cu's K5 and K6 (blocks of several
+# warps) compile beside K7 but run in tests/test_torch_msm_host.py.
 HARNESS = WARP_HARNESS + r"""
-namespace {
-int4 smem[1];
-}
 #include "scalar_mul_kernels.inc"
 #include "msm_kernels.inc"
 template <class F, int kThreadsPerLane>
@@ -143,10 +140,8 @@ extern "C" void k7(const int* tX, const int* tY, const int* tZ, int* oX,
 
 def _kernels_only(src: str) -> str:
     """A kernel source without its C entry points and launch
-    configurations (the harness calls the kernels itself); K6's dynamic
-    shared array becomes the harness's."""
-    src = re.sub(r"<<<.*?>>>", "", src[:src.index('extern "C"')], flags=re.S)
-    return src.replace("extern __shared__", "extern")
+    configurations (the harness calls the kernels itself)."""
+    return re.sub(r"<<<.*?>>>", "", src[:src.index('extern "C"')], flags=re.S)
 
 
 @pytest.fixture(scope="module")

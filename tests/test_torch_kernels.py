@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import horner_edge_windows
+from chip_smoke import horner_edge_windows, tree_edge_buckets
 from lighthouse_tpu_torch.crypto.bls.constants import P
 from lighthouse_tpu_torch.crypto.bls.constants import R as ORDER
 from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g2_generator, g2_infinity
@@ -284,6 +284,41 @@ def test_subgroup_fast_kernel_in_every_shape():
 
 
 @pytest.mark.cuda
+def test_subgroup_full_kernel_in_every_shape():
+    """K15 one warp per lane, 4 lanes per warp and one thread per lane
+    (lh_subgroup_full_shaped, the NAF chain) on more lanes than the card
+    has SMs, a ragged last warp among them: each shape's verdicts are its
+    plain version's and K4's; the wrapper takes the shape its rule chooses
+    and counts one launch."""
+    import ctypes
+
+    _card()
+    g = g2_generator()
+    pts = [g.mul(k) for k in range(2, 7)] + [map_to_curve_g2(Fq2(k, 1)) for k in range(2)]
+    n = torch.cuda.get_device_properties(0).multi_processor_count + 3
+    x, y, inf = _cuda(*points.g2_to_dev(pts))
+    rows = torch.arange(n, device="cuda") % len(pts)
+    x, y, inf = x[rows], y[rows], inf[rows]
+    inf[3] = inf[5] = True
+    F = points.FP2_OPS
+    want = points.pt_subgroup_check(F, points.pt_from_affine(F, x, y, inf))
+    assert _same(want, points.subgroup_check_g2_fast(x, y, inf))
+    assert not bool(want.all()) and bool(want[inf].all())
+    lib = tc.K15.library.load()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for lanes in (1, 4, 32):
+        out = torch.empty(n, dtype=torch.bool, device="cuda")
+        rc = lib.lh_subgroup_full_shaped(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (x, y, inf, out)),
+            ctypes.c_int(lanes), ctypes.c_longlong(n), stream)
+        assert rc == 0
+        assert _same(out, want), lanes
+    before = tc.K15.launches
+    assert _same(tc.subgroup_check_g2(x, y, inf), want)
+    assert tc.K15.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_miller_and_final_exp_kernels_match_plain():
     _card()
     g1, g2 = g1_generator(), g2_generator()
@@ -499,6 +534,27 @@ def test_accumulate_shapes_match_model(segments):
 
 
 @pytest.mark.cuda
+def test_tree_kernel_edge_buckets():
+    """K6 (a block per window, a lane on 16 threads) on the edge batch's
+    buckets and on the edge buckets (a window wholly at infinity, the
+    doubling, the cancellation): raw-equal to tree_plain on all 256 lanes,
+    one launch each."""
+    _card()
+    g = g2_generator()
+    pts = [g.mul(3 + 7 * i) for i in range(8)]
+    pts[1] = pts[0]
+    pts[3] = pts[2].neg()
+    idx, valid = msm.build_schedule(MSM_R, msm.max_rounds(8), np.arange(8) == 7)
+    sx, sy, _ = points.g2_to_dev(pts)
+    sx, sy, idx, valid = _cuda(sx, sy, idx, valid)
+    for B in (msm.accum_plain(sx, sy, idx, valid),
+              tuple(c.cuda() for c in tree_edge_buckets(torch))):
+        before = msm.K6.launches
+        assert _same(msm.tree(B), msm.tree_plain(B))
+        assert msm.K6.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_horner_kernel_edge_windows():
     """K7 raw-equal to horner_plain on windows that take every leg of the
     complete addition."""
@@ -515,13 +571,49 @@ def test_horner_kernel_edge_windows():
 CSRC = Path(__file__).resolve().parent.parent / "lighthouse_tpu_torch" / "csrc"
 
 
+def _source_words(text, name):
+    """The integer whose little-endian 32-bit words a source's constant
+    array ``name`` holds."""
+    body = re.search(rf"\b{name}\[[^=]*=\s*\{{(.*?)\}};", text, re.S).group(1)
+    return sum(int(w, 16) << (32 * k)
+               for k, w in enumerate(re.findall(r"0x([0-9a-f]{8})u", body)))
+
+
+def _naf(k):
+    """The non-adjacent form of k > 0, least significant digit first."""
+    digits = []
+    while k:
+        d = 2 - k % 4 if k % 2 else 0
+        digits.append(d)
+        k = (k - d) // 2
+    return digits
+
+
 def test_subgroup_order_words_match_python():
-    text = (CSRC / "subgroup.cu").read_text()
-    body = re.search(r"\bkOrder\[[^=]*=\s*\{(.*?)\};", text, re.S).group(1)
-    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", body)]
-    assert words == [(ORDER >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
-    top = int(re.search(r"kOrderTopBit = (\d+);", text).group(1))
-    assert top == ORDER.bit_length() - 1 == 254
+    """K15's digit words are the NAF of the curve order r: the positive and
+    negative digits of _naf(R), its top digit at kOrderNafTop."""
+    text = (CSRC / "subgroup_fast.cu").read_text()
+    digits = _naf(ORDER)
+    pos, neg = (_source_words(text, name) for name in ("kOrderNafPos", "kOrderNafNeg"))
+    assert pos == sum(1 << i for i, d in enumerate(digits) if d == 1)
+    assert neg == sum(1 << i for i, d in enumerate(digits) if d == -1)
+    top = int(re.search(r"kOrderNafTop = (\d+);", text).group(1))
+    assert top == len(digits) - 1 == 255
+
+
+def test_subgroup_order_naf_is_the_short_chain():
+    """The NAF in the source: its digits give back r, no two adjacent are
+    nonzero, 60 of 256 are (255 doublings and 59 mixed additions, against
+    the binary chain's 254 and 133), and the last is +1 (the mixed addition
+    of Q onto [r - 1]Q = -Q)."""
+    text = (CSRC / "subgroup_fast.cu").read_text()
+    pos, neg = (_source_words(text, name) for name in ("kOrderNafPos", "kOrderNafNeg"))
+    assert pos - neg == ORDER and pos & neg == 0
+    nonzero = pos | neg
+    assert nonzero & (nonzero >> 1) == 0
+    assert bin(nonzero).count("1") == 60 and nonzero.bit_length() == 256
+    assert bin(ORDER).count("1") - 1 == 133
+    assert pos & 1 and pos >> 255 == 1
 
 
 @pytest.mark.parametrize("name, value", [

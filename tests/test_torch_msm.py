@@ -6,8 +6,10 @@ The host schedule must equal the JAX package's byte for byte; the MSM must
 equal the oracle's sum_i r_i S_i and the scan (per-set scalar
 multiplication, then the S-leaf tree) at canonical affine, edge cases
 included; schedule overflow must leave the fused verify on the scan with
-the same verdict. Inputs come from seeded numpy generators. The slow tier
-holds the plain MSM against the JAX package's ``msm_g2`` in interpret mode.
+the same verdict; K15's plain version must give the oracle's verdicts and
+those of the JAX package's Pallas kernel in interpret mode. Inputs come
+from seeded numpy generators. The slow tier holds the plain MSM against
+the JAX package's ``msm_g2`` in interpret mode.
 The kernels themselves need the card: ``tests/test_torch_kernels.py``.
 """
 
@@ -237,6 +239,26 @@ def test_subgroup_full_plain_matches_oracle():
     got = tc.subgroup_check_g2(x, y, inf).tolist()
     assert got == [True, False, True]
     assert got[:2] == [g2_subgroup_check(p) for p in pts[:2]]
+
+
+def test_subgroup_full_plain_matches_jax_kernel_interpret():
+    """K15's plain version against the JAX package's subgroup_check_g2_t
+    (its Pallas kernel in interpret mode, as tests/test_tkernel.py runs it)
+    on the same four lanes: in G2, outside G2 (map_to_curve_g2 without
+    cofactor clearing), at infinity (a real point's limbs under the flag),
+    in G2."""
+    import jax.numpy as jnp
+
+    from lighthouse_tpu.ops import tkernel as tk
+    from lighthouse_tpu.ops import tkernel_calls as jtc
+
+    pts = [G2.mul(7), map_to_curve_g2(Fq2(5, 7)), G2.mul(2), G2.mul(99)]
+    x, y, inf = jpoints.g2_to_dev(pts)
+    inf[2] = True
+    want = jtc.subgroup_check_g2_t(tk.batch_to_t(x), tk.batch_to_t(y),
+                                   jnp.asarray(inf)[None, :].astype(jnp.int32))
+    got = tc.subgroup_check_g2(*_t(x, y, inf))
+    assert list(np.asarray(want)) == got.tolist() == [True, False, True, True]
 
 
 # ------------------------------------------------------------- slow tier

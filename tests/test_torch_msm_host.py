@@ -1,6 +1,7 @@
-"""K5 (the MSM's bucket accumulation) built with the host C++ compiler and
-run on the CPU, in its launch shapes, against its plain version and its
-segment model; and the segment model itself on the CPU.
+"""K5 (the MSM's bucket accumulation) and K6 (its bucket tree) built with the
+host C++ compiler and run on the CPU, in their launch shapes, against their
+plain versions and K5's segment model; and the segment model itself on the
+CPU.
 
 ``csrc/msm.cu`` runs each bucket on groups of 8 of a warp's threads with
 the group law of ``csrc/warp_curve.cuh``, cut into k segments of its
@@ -15,8 +16,12 @@ with a duplicate signature (the mixed addition doubles) and a cancelling
 pair (a bucket at infinity takes a further point), on masks that are no
 prefix, with every set skipped, and the pad lanes; an index outside
 [0, S) in a slot the mask skips still stops the kernel; the shape the
-launch takes for L rounds. Each call into the host build runs under the
-time limit of ``harness_call``. What it cannot check is the PTX branch of
+launch takes for L rounds. K6 runs one block per window, each of the
+window's 16 lanes on a group of 16 threads of the complete addition; it
+is checked limb for limb on all 256 lanes against ``msm.tree_plain``, on
+two seeded schedules' buckets and on buckets that take every leg of the
+addition. Each call into the host build runs under the time limit of
+``harness_call``. What it cannot check is the PTX branch of
 the carry words and the card's scheduling: ``chip_smoke.py`` and the
 ``cuda`` tests of ``tests/test_torch_kernels.py`` do, on the card.
 
@@ -34,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import tree_edge_buckets
 from lighthouse_tpu_torch.crypto.bls.curve import g2_generator
 from lighthouse_tpu_torch.ops import msm, points
 from tests.test_torch_curve_host import _function, _kernels_only
@@ -44,8 +50,8 @@ CSRC = Path(__file__).resolve().parent.parent / "lighthouse_tpu_torch" / "csrc"
 # One block at a time of up to 8 warps: a barrier for each group of 4, 8,
 # 16 or 32 consecutive threads of each warp that a __syncwarp mask names,
 # one for the block's __syncthreads; the CUDA runtime calls of the launch
-# paths (not run here). msm.cu's K6 (dynamic shared memory) and K7 compile
-# beside K5 but do not run here.
+# paths (not run here). msm.cu's K7 compiles beside K5 and K6 but runs in
+# tests/test_torch_curve_host.py.
 BLOCK_HARNESS = r"""
 #include <barrier>
 #include <thread>
@@ -69,9 +75,6 @@ void __syncwarp(unsigned mask) {
 void __syncthreads() { g_block->arrive_and_wait(); }
 #undef __launch_bounds__
 #define __launch_bounds__(...)
-namespace {
-int4 smem[1];
-}
 #include "msm_kernels.inc"
 
 template <class F>
@@ -106,6 +109,14 @@ extern "C" void k5(int k, const int* sx, const int* sy, const int* idx,
 }
 // the segments the launch path takes for L rounds
 extern "C" int k5_segments(int L) { return accum_segments(L); }
+// K6 as lh_msm_tree launches it: a block per window
+extern "C" void k6(const int* bX, const int* bY, const int* bZ, int* oX, int* oY,
+                   int* oZ) {
+  blocks(0, kWindows, kWindowLanes * kTreeThreads, [=] {
+    msm_tree_kernel((const int4*)bX, (const int4*)bY, (const int4*)bZ, (int4*)oX,
+                    (int4*)oY, (int4*)oZ);
+  });
+}
 """
 
 
@@ -119,7 +130,8 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """msm.cu's kernels (K5's body on warp_curve.cuh) built for the host."""
+    """msm.cu's kernels (K5's and K6's bodies on warp_curve.cuh) built for
+    the host."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the CUDA sources with")
@@ -140,6 +152,7 @@ def host_lib(tmp_path_factory):
     h = ctypes.CDLL(str(lib))
     h.k5.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
     h.k5_segments.argtypes = [ctypes.c_int]
+    h.k6.argtypes = [ctypes.c_void_p] * 6
     return h
 
 
@@ -382,3 +395,100 @@ def test_k5_runs_on_the_warp_group_law():
     assert "if (segments == 0) segments = accum_segments(L);" in src
     assert re.search(r"msm_accum_kernel<<<kLanes \* kPackedGroup \* k / threads, threads, ", src)
     assert not re.search(r"msm_accum_kernel<\w", src)  # one group width
+
+
+# ------------------------------------------------------------------- K6
+
+
+def _lane(w, j):
+    """The bucket lane of window w's row j (digit j + 1; j = 15 the pad)."""
+    return j * 16 + w
+
+
+def _schedule_buckets(seed, n, skip):
+    """K5's plain output on a seeded schedule of n sets with the edge cases:
+    buckets of one or several points, empty buckets at (one, one, zero) or
+    a point's limbs under Z = 0, the all-zero pad lanes."""
+    sx, sy = _points(seed, n)
+    idx, valid = _schedule(seed, n, skip)
+    return tuple(c.contiguous() for c in msm.accum_plain(sx, sy, idx, valid))
+
+
+def _window_rows(rows):
+    """Bucket lanes whose row j of every window holds rows[j] (a G2 point,
+    or None: a point's limbs under Z = 0); the pad lanes all-zero limbs."""
+    g = g2_generator()
+    F = points.FP2_OPS
+    x, y, _ = points.g2_to_dev([p or g for p in rows for _ in range(16)])
+    X, Y, Z = (c.clone() for c in points.pt_from_affine(
+        F, torch.from_numpy(x), torch.from_numpy(y)))
+    for j, p in enumerate(rows):
+        if p is None:
+            Z[j * 16:(j + 1) * 16] = 0
+    pad = torch.zeros(16, 2, 48, dtype=torch.int32)
+    return tuple(torch.cat([c, pad]).contiguous() for c in (X, Y, Z))
+
+
+def _tree_buckets(case):
+    g = g2_generator()
+    if case == "seeded schedule":
+        return _schedule_buckets(12, 24, np.arange(24) == 23)
+    if case == "second seeded schedule":
+        return _schedule_buckets(5, 40, None)
+    if case == "edge lanes":
+        return tree_edge_buckets(torch)
+    if case == "every lane at infinity":
+        return tuple(torch.zeros(256, 2, 48, dtype=torch.int32) for _ in range(3))
+    if case == "top digit only":
+        return _window_rows([None] * 14 + [g.mul(9)])
+    assert case == "one point on every row"
+    return _window_rows([g.mul(5)] * 15)
+
+
+def _k6(host_lib, B):
+    out = torch.zeros(3, 256, 2, 48, dtype=torch.int32)
+    harness_call(lambda: host_lib.k6(*(_ptr(c) for c in B), _ptr(out[0]),
+                                     _ptr(out[1]), _ptr(out[2])), out)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("buckets", [
+    "seeded schedule", "second seeded schedule", "edge lanes", "every lane at infinity",
+    "top digit only", "one point on every row"])
+def test_tree_matches_plain_on_every_lane(host_lib, buckets):
+    """K6 limb for limb tree_plain on all 256 lanes: on two seeded
+    schedules' buckets; on the edge lanes (a window wholly at infinity,
+    buckets at infinity, the doubling, the cancellation); with every lane at
+    infinity (each group leaves every step at once); with only digit 15's
+    row finite (the lanes below take its point, the row itself the zeros
+    shifted in past the window's top); with one point on every row (every
+    lane doubles in the first step)."""
+    B = _tree_buckets(buckets)
+    want = msm.tree_plain(B)
+    assert _same(_k6(host_lib, B), want)
+    F = points.FP2_OPS
+    if buckets == "edge lanes":
+        assert bool(F.is_zero(want[2][_lane(0, 0)]))  # window 0's sum at infinity
+        assert not bool(F.is_zero(want[2][_lane(2, 0)]))  # window 2's finite
+    if buckets == "top digit only":  # window sum 15 * [9] G
+        assert _same_points(tuple(c[:16] for c in want),
+                            tuple(c[:16] for c in _window_rows([g2_generator().mul(135)])))
+    if buckets == "one point on every row":  # (1 + .. + 15) * [5] G
+        assert _same_points(tuple(c[:16] for c in want),
+                            tuple(c[:16] for c in _window_rows([g2_generator().mul(600)])))
+
+
+def test_k6_runs_one_block_per_window_on_the_warp_group_law(host_lib):
+    """K6's lanes run warp_curve.cuh's complete addition on block groups of
+    16 threads, the widest round's 12 products in one pass; one block per
+    window of 16 lanes; no dynamic shared memory and no one-thread group
+    law left in msm.cu."""
+    src = (CSRC / "msm.cu").read_text()
+    k6 = _function(src, "msm_tree_kernel")
+    assert "__launch_bounds__(kWindowLanes * kTreeThreads)" in k6
+    assert "block_group<kTreeThreads>(slots)" in k6
+    assert "pt_add(G, P, Q)" in k6 and "__syncthreads()" in k6
+    assert re.search(r"constexpr int kTreeThreads = 16;", src)
+    assert re.search(r"msm_tree_kernel<<<kWindows, kWindowLanes \* kTreeThreads, 0, ", src)
+    assert "extern __shared__" not in src and '#include "curve.cuh"' not in src
+    assert "kPasses" not in (CSRC / "warp_curve.cuh").read_text()
