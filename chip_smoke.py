@@ -82,7 +82,24 @@ In order, and failing (nonzero exit, no result line) at the first fault:
    valid and swapped batches;
 9. two small batches through every configuration, the chained hash
    (``htc_resident=False``) among them, against the pure-Python oracle;
-10. K1 at every size the main path launched it with (bit equality, time
+10. the input path: the registry of 1,000,000 keys pk_i = (i+1) G built
+    on the card (``blsrt.build_sequential_table``: one K3 G1 at 8,192
+    lanes x 14 bits, then per step of 8,192 rows a mixed addition of [8192]G
+    on K1 and K2 G1; 123 steps), timed, byte-equal to the golden build (K3
+    G1 over 20 bits and K2 G1 per step), rows 0, 1, 12,345 and N-1 equal
+    to the oracle's, ``compressed_pubkeys`` of the first 4,096 rows equal
+    to the oracle's compression; K3 G1 (raw) and K2 G1 (at canonical
+    affine) against their plain versions at 8,192 lanes, timed; the
+    indexed verify of S=128 sets of K=512 validator indices (committee j
+    takes [512 j, 512 (j+1)), its PublicKey objects without points) from
+    the registered table, valid True and swapped False on the "indexed"
+    path with the main path's kernels, then in three turns alternating
+    with the main batch's host pack, a batch of the same shape; the main
+    batch through ``TorchBackend(input_cache=True)`` in two rounds, each
+    from empty caches, cold then warm (the warm call launches no K12), with
+    the caches' report; the warm pubkey grid byte-equal to the uncached
+    one, each pack timed alone; the table unregistered after;
+11. K1 at every size the main path launched it with (bit equality, time
     per call, device-only L2-warm and L2-cold, host enqueue) and its
     totals per verify; the
     device time of a default verify summed from the kernels' device-only
@@ -102,8 +119,12 @@ it. Each configuration has its list: the default fused path must launch K1,
 K2, K3 G1, K4, K5-K7 (once each), K8-K12 (K8 once, K10 five times) and not
 K3 G2, K13, K14 or K15; with ``msm=False`` K3 G2 and not K5-K7; with the
 chained hash K13 and K14 and not K12; with the host hash none of K12-K14;
-the classic path K1 and none of the others. No verify launches K15: its
-launches are those of the K4-against-K15 check.
+the classic path K1 and none of the others; the indexed verify and the
+cold cached call the default path's list, the warm cached call that list
+without K12 (and K12 among those it may not launch). No verify launches
+K15: its launches are those of the K4-against-K15 check. K3 G1 and K2 G1
+also carry, under ``table_build`` on the kernels line, their times, bound
+and launches at the table build's shapes.
 
 Imports nothing of JAX or of the JAX package. Data comes from a seeded
 numpy generator (secret keys sk_i = base + i, so pk_{i+1} = pk_i + G1).
@@ -1005,6 +1026,18 @@ def scalar_mul_products(np, c: dict, g: str, inf, bits) -> int:
     return int(bits.shape[0] * bits.shape[1] * c[f"dbl_{g}"] + adds * c[f"madd_{g}"])
 
 
+def set_bound(e: dict, int_rate: float) -> float:
+    """Replace an entry's bytes, Fp products and other integer operations
+    by ``bound_ms`` / ``bound_by``: the larger of the bytes over the HBM
+    rate and the operations over the integer rate. Returns the bytes' ms."""
+    bytes_ms = e.pop("bytes") / HBM_BYTES_PER_S * 1e3
+    ops_ms = (e.pop("fp_products") * MADS_PER_FP_PRODUCT
+              + e.pop("int_ops", 0)) / int_rate * 1e3
+    e["bound_ms"] = max(bytes_ms, ops_ms)
+    e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return bytes_ms
+
+
 def compare(torch, got, want):
     """(raw limbs equal, equal after canonical, max |limb difference|)."""
     from lighthouse_tpu_torch.ops import field
@@ -1880,7 +1913,7 @@ def run_verify(torch, backend, sets, label: str, must, must_not=()):
     launches = {k.name: k.launches for k in _build.KERNELS}
     sizes = {k.name: k.sizes.copy() for k in _build.KERNELS}
     dev = backend.last_operand_device
-    log(f"{label}: verdict {ok} in {seconds:.3f} s; stages "
+    log(f"{label}: verdict {ok} in {seconds:.3f} s on the {backend.last_path} path; stages "
         f"{json.dumps({k: round(v, 4) for k, v in backend.last_stage_seconds.items()})}; "
         f"operands on {dev}; kernel launches {json.dumps(launches)}; "
         f"nvidia-smi over the verify {json.dumps(gpu.summary)}")
@@ -1893,7 +1926,8 @@ def run_verify(torch, backend, sets, label: str, must, must_not=()):
         if launches[name]:
             raise AssertionError(f"{label}: kernel {name} ran on this path")
     return ok, {"seconds": seconds, "launches": launches, "sizes": sizes,
-                "stages": dict(backend.last_stage_seconds), "gpu": gpu.summary}
+                "stages": dict(backend.last_stage_seconds), "gpu": gpu.summary,
+                "path": backend.last_path}
 
 
 def verify_path(torch, sets, label: str, options: dict, must, must_not,
@@ -1921,8 +1955,9 @@ def verify_path(torch, sets, label: str, options: dict, must, must_not,
 
 def swapped(api, sets):
     bad = list(sets)
-    bad[0] = api.SignatureSet(sets[1].signature, sets[0].signing_keys, sets[0].message)
-    bad[1] = api.SignatureSet(sets[0].signature, sets[1].signing_keys, sets[1].message)
+    for i, j in ((0, 1), (1, 0)):
+        bad[i] = api.SignatureSet(sets[j].signature, sets[i].signing_keys,
+                                  sets[i].message, sets[i].signing_key_indices)
     return bad
 
 
@@ -1947,6 +1982,224 @@ def small_batches(torch, sets, paths) -> dict:
     log(f"small batches: {', '.join(paths)} agree with the pure-Python oracle "
         "(True, False)")
     return runs
+
+
+# --------------------------------------------------- phase 10: input path
+
+
+N_VALIDATORS = 1_000_000    # the registry of the north star's batch
+TABLE_CHUNK = 8192          # lanes of one build step
+COMPRESSED_ROWS = 4096      # rows held to the oracle's compression
+PACK_TURNS = 3              # indexed / host-pack verifies, alternating
+CACHE_ROUNDS = 2            # cold-then-warm rounds through the input caches
+
+
+def indexed_batch(np, n_sets: int, n_keys: int):
+    """S sets of K validator indices into the sequential registry (pk_i =
+    (i+1) G): committee j takes indices [j K, (j+1) K) and signs message
+    j.to_bytes(32, "big") with the sum of its secrets. The PublicKey
+    objects carry no points: the verify must gather them."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2
+
+    sets = []
+    for j in range(n_sets):
+        lo = j * n_keys
+        msg = j.to_bytes(32, "big")
+        sk_sum = (n_keys * (lo + 1) + n_keys * (n_keys - 1) // 2) % R
+        sig = api.AggregateSignature(hash_to_g2(msg).mul(sk_sum))
+        sets.append(api.SignatureSet.multiple_pubkeys(
+            sig, [api.PublicKey(None) for _ in range(n_keys)], msg,
+            indices=list(range(lo, lo + n_keys))))
+    return sets
+
+
+def build_launches(torch, run):
+    """(result, seconds, launches by kernel) of one table build ``run()``,
+    the counts zeroed just before it."""
+    from lighthouse_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    seconds = time.perf_counter() - t0
+    return out, seconds, {k.name: k.launches for k in _build.KERNELS if k.launches}
+
+
+def check_table(np, table, golden, n: int) -> None:
+    """The incremental table byte for byte against the golden build, rows
+    0, 1, 12,345 and n-1 against the oracle's (i+1) G, and the compressed
+    form of the first rows against the oracle's."""
+    from lighthouse_tpu_torch import blsrt, interop
+    from lighthouse_tpu_torch.crypto.bls.curve import g1_generator, g1_to_compressed
+    from lighthouse_tpu_torch.ops import points
+
+    tx, ty = table.host_planes()
+    for name, a, b in zip("xy", (tx, ty), golden.host_planes()):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"table {name} rows: the incremental build differs "
+                                 "from the golden build")
+    g = g1_generator()
+    rows = sorted({0, 1, 12_345 % n, n - 1})
+    xs, ys, _ = points.g1_to_dev([g.mul(i + 1) for i in rows])
+    for k, i in enumerate(rows):
+        if not (np.array_equal(tx[i], xs[k].astype(np.uint8))
+                and np.array_equal(ty[i], ys[k].astype(np.uint8))):
+            raise AssertionError(f"table row {i} is not the oracle's ({i + 1}) G")
+    head = interop.table_from_numpy(tx, ty, COMPRESSED_ROWS)
+    got = blsrt.compressed_pubkeys(head)
+    pt = g
+    for i in range(COMPRESSED_ROWS):
+        if bytes(got[i]) != g1_to_compressed(pt):
+            raise AssertionError(f"compressed_pubkeys row {i} != the oracle's")
+        pt = pt.add(g)
+    log(f"table of {n} rows: byte-equal to the golden build, rows {rows} equal "
+        f"to the oracle's (i+1) G, compressed_pubkeys of the first "
+        f"{COMPRESSED_ROWS} rows equal to the oracle's compression")
+
+
+def check_build_kernels(torch, np, chunk: int, nbits: int) -> dict:
+    """K3 G1 (raw) and K2 G1 (canonical affine) against their plain versions
+    at the table build's shapes: the generator on ``chunk`` lanes times the
+    scalars 1..chunk. Returns {kernel name: entry}."""
+    from lighthouse_tpu_torch import blsrt
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.ops import points
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+    from lighthouse_tpu_torch.ops.points import FP_OPS, G1_GEN_DEV
+
+    dev = torch.device("cuda")
+    c = fp_product_counts(P)
+    gx, gy = blsrt._point_lanes(*G1_GEN_DEV, chunk, dev)
+    inf_np = np.zeros(chunk, bool)
+    bits_np = blsrt._chunk_bits(0, chunk, nbits)
+    inf, bits = torch.from_numpy(inf_np).to(dev), torch.from_numpy(bits_np).to(dev)
+    k3 = check_kernel(
+        torch, tc.K3_G1, f"K3 scalar_mul_g1 {chunk} lanes x {nbits} bits (table build)",
+        lambda: tc.scalar_mul_g1(gx, gy, inf, bits),
+        lambda: points.pt_scalar_mul_bits(FP_OPS, (gx, gy), inf, bits),
+        scalar_mul_products(np, c, "g1", inf_np, bits_np),
+        chunk * (2 * 192 + 1 + nbits * 4 + 3 * 192), raw_only=True)
+    J = tc.scalar_mul_g1(gx, gy, inf, bits)
+    k2 = check_kernel(
+        torch, tc.K2_G1, f"K2 to_affine_g1 {chunk} lanes (table build)",
+        lambda: tc.to_affine_g1(J), lambda: points.pt_to_affine(FP_OPS, J),
+        chunk * 5, chunk * (3 * 192 + 2 * 192 + 1), int_ops=chunk * gcd_inverse_ops())
+    return {tc.K3_G1.name: k3, tc.K2_G1.name: k2}
+
+
+def input_path(torch, np, sets, must, must_not) -> dict:
+    """The registry of N_VALIDATORS keys built on the card and checked, the
+    build's K3 G1 and K2 G1 against their plain versions, the indexed
+    verify of S x K sets gathered from it, then the main batch through the
+    input caches, cold and warm. Returns the build's kernel entries, the
+    builds' seconds and the verifies' runs."""
+    from lighthouse_tpu_torch import blsrt, torch_backend
+    from lighthouse_tpu_torch.crypto.bls.curve import g1_infinity
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+    from lighthouse_tpu_torch.ops import tkernel_htc as th
+    from lighthouse_tpu_torch.torch_backend import TorchBackend
+
+    t_phase = time.perf_counter()
+    n, chunk = N_VALIDATORS, TABLE_CHUNK
+    steps = -(-n // chunk)
+    k3, k2 = tc.K3_G1.name, tc.K2_G1.name
+    table, build_s, build_n = build_launches(
+        torch, lambda: blsrt.build_sequential_table(n, chunk, device="cuda"))
+    golden, golden_s, golden_n = build_launches(
+        torch, lambda: blsrt._build_sequential_table_scalarmul(n, chunk, device="cuda"))
+    log(f"table of {n} keys built on the card in {build_s:.3f} s, {chunk} lanes "
+        f"per step (launches {json.dumps(build_n)}); the golden build in "
+        f"{golden_s:.3f} s (launches {json.dumps(golden_n)})")
+    if (build_n.get(k3), build_n.get(k2), golden_n.get(k3), golden_n.get(k2)) \
+            != (1, steps, steps, steps):
+        raise AssertionError(f"the builds launched K3 G1 / K2 G1 {build_n.get(k3)} / "
+                             f"{build_n.get(k2)} and {golden_n.get(k3)} / "
+                             f"{golden_n.get(k2)} times, not 1 / {steps} and "
+                             f"{steps} / {steps}")
+    check_table(np, table, golden, n)
+    del golden
+    entries = check_build_kernels(torch, np, chunk, max(1, chunk.bit_length()))
+    entries[k3]["launches_per_build"] = build_n[k3]
+    entries[k3]["launches_per_golden_build"] = golden_n[k3]
+    entries[k2]["launches_per_build"] = build_n[k2]
+    entries[k2]["launches_per_golden_build"] = golden_n[k2]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table.device_arrays("cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    log(f"table uploaded: {table.capacity} rows x 2 x 48 B = "
+        f"{2 * table.capacity * 48 / 2**20:.0f} MiB in {upload_s:.4f} s")
+
+    t0 = time.perf_counter()
+    isets = indexed_batch(np, N_SETS, N_KEYS)
+    log(f"indexed batch of S={N_SETS} x K={N_KEYS} built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    blsrt.set_device_table(table)
+    indexed = verify_path(torch, isets, "indexed", {}, must, must_not)
+    for label, run in indexed.items():
+        if run["path"] != "indexed":
+            raise AssertionError(f"indexed {label}: took the {run['path']} path")
+    # the indexed batch against the host pack of the main batch, a batch of
+    # the same shape, in alternating turns
+    turns = {"indexed": [], "host pack": []}
+    be = TorchBackend()
+    for turn in range(PACK_TURNS):
+        for label, batch in (("indexed", isets), ("host pack", sets)):
+            ok, run = run_verify(torch, be, batch, f"{label} turn {turn} "
+                                 f"S={N_SETS} K={N_KEYS}", must, must_not)
+            if ok is not True or run["path"] != ("indexed" if label == "indexed"
+                                                 else "fused"):
+                raise AssertionError(f"{label} turn {turn}: verdict {ok} on the "
+                                     f"{run['path']} path")
+            turns[label].append(run)
+    blsrt.set_device_table(None)
+    for label, runs in turns.items():
+        secs = [r["seconds"] for r in runs]
+        log(f"{label} over {len(secs)} turns: {json.dumps([round(x, 4) for x in secs])} s "
+            f"per verify, median {statistics.median(secs):.4f} s, "
+            f"{N_SETS / max(secs):.1f}-{N_SETS / min(secs):.1f} sets/s; pack "
+            f"{json.dumps([round(r['stages']['pack'], 4) for r in runs])} s")
+
+    # the main batch (points, no indices) through the input caches: each
+    # round empties them, then verifies cold and warm; the packs alone after
+    S, K = N_SETS, N_KEYS
+    args = (sets, S, K, len(sets), g1_infinity())
+    be = TorchBackend(input_cache=True)
+    warm_must = [m for m in must if m != th.K12.name]
+    cache_runs = []
+    for rnd in range(CACHE_ROUNDS):
+        blsrt.reset_input_caches()
+        runs = {}
+        for label, ok_must, ok_not in (("cold", must, must_not),
+                                       ("warm", warm_must, [*must_not, th.K12.name])):
+            ok, runs[label] = run_verify(
+                torch, be, sets, f"cached {label} round {rnd} S={S} K={K}", ok_must, ok_not)
+            if ok is not True:
+                raise AssertionError(f"cached {label}: the valid batch did not verify")
+            log(f"cached {label} round {rnd}: pack {runs[label]['stages']['pack']:.4f} s, "
+                f"hash_to_curve {runs[label]['stages']['hash_to_curve']:.4f} s; "
+                f"input caches {json.dumps(blsrt.input_cache_report())}")
+        cache_runs.append(runs)
+    t0 = time.perf_counter()
+    warm_grid = torch_backend._pack_pubkey_grid(*args, blsrt.PUBKEY_ROW_CACHE)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_grid = torch_backend._pack_pubkey_grid(*args)
+    plain_s = time.perf_counter() - t0
+    if not all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(warm_grid, plain_grid)):
+        raise AssertionError("the warm cached grid differs from the uncached grid")
+    log(f"warm cached grid byte-equal to the uncached grid; the pubkey grid "
+        f"alone: warm cached {warm_s:.4f} s, uncached {plain_s:.4f} s")
+    blsrt.reset_input_caches()
+    log(f"input path phase {time.perf_counter() - t_phase:.1f} s")
+    return {"entries": entries, "build_s": build_s, "golden_s": golden_s,
+            "indexed": indexed, "turns": turns, "cache": cache_runs}
 
 
 # ----------------------------------------------------------------- main
@@ -2046,12 +2299,24 @@ def main() -> int:
     classic_runs = verify_path(torch, sets, "classic host-hash",
                                *paths["classic host-hash"])
     small = small_batches(torch, sets, paths)
+    inputs = input_path(torch, np, sets, *paths["fused"][1:])
+    for name, e in inputs["entries"].items():
+        fused[name]["table_build"] = e
     log(f"per verify of S={N_SETS} x K={N_KEYS}: fused {fused_runs['valid']['seconds']:.3f} s "
         f"(device hash, MSM; swapped {fused_runs['poisoned']['seconds']:.3f} s), "
         f"fused {scan_runs['valid']['seconds']:.3f} s (device hash, scan; swapped "
         f"{scan_runs['poisoned']['seconds']:.3f} s), "
         f"fused {host_runs['valid']['seconds']:.3f} s (host hash, MSM), "
-        f"classic {classic_runs['valid']['seconds']:.3f} s (host hash)")
+        f"classic {classic_runs['valid']['seconds']:.3f} s (host hash); indexed "
+        f"{inputs['indexed']['valid']['seconds']:.3f} s (swapped "
+        f"{inputs['indexed']['poisoned']['seconds']:.3f} s; turns "
+        f"{json.dumps([round(r['seconds'], 3) for r in inputs['turns']['indexed']])} "
+        f"against the host pack's "
+        f"{json.dumps([round(r['seconds'], 3) for r in inputs['turns']['host pack']])}); "
+        f"cached cold {json.dumps([round(r['cold']['seconds'], 3) for r in inputs['cache']])} s, "
+        f"warm {json.dumps([round(r['warm']['seconds'], 3) for r in inputs['cache']])} s; "
+        f"1M table build "
+        f"{inputs['build_s']:.3f} s (golden {inputs['golden_s']:.3f} s)")
 
     # launches from the run of the path each kernel belongs to: the main
     # path's; the scan's for K3 G2; the chained hash's small batch for K13
@@ -2071,11 +2336,16 @@ def main() -> int:
         e["launches"] = launches[e["name"]]
         if e["name"] in launches_path:
             e["launches_path"] = launches_path[e["name"]]
-        bytes_ms = e.pop("bytes") / HBM_BYTES_PER_S * 1e3
-        ops_ms = (e.pop("fp_products") * MADS_PER_FP_PRODUCT
-                  + e.pop("int_ops", 0)) / int_rate * 1e3
-        e["bound_ms"] = max(bytes_ms, ops_ms)
-        e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        bytes_ms = set_bound(e, int_rate)
+        tb = e.get("table_build")
+        if tb is not None:  # K3 G1, K2 G1 at the table build's shapes
+            set_bound(tb, int_rate)
+            tb["launches"] = tb["launches_per_build"]
+            log(f"{tb['variant']}: device-only {tb['device_ms']:.4f} ms, per "
+                f"call {tb['ms']:.4f} ms, plain {tb['plain_ms']:.1f} ms, bound "
+                f"{tb['bound_ms']:.6f} ms ({tb['bound_by']}); launches per 1M "
+                f"build {tb['launches_per_build']}, per golden build "
+                f"{tb['launches_per_golden_build']}")
         if "fermat_products" in e:  # K2, K9: the bound of the Fermat chain replaced
             fermat_ms = max(bytes_ms, e.pop("fermat_products")
                             * MADS_PER_FP_PRODUCT / int_rate * 1e3)

@@ -207,17 +207,23 @@ class SignatureSet:
     signature: AggregateSignature
     signing_keys: list[PublicKey]
     message: bytes
+    # Validator indices parallel to signing_keys, when the caller knows
+    # them: the backend then gathers the pubkeys from the registered device
+    # table (``blsrt.DevicePubkeyTable``) instead of packing coordinates.
+    signing_key_indices: list[int] | None = None
 
     @classmethod
-    def single_pubkey(cls, signature, signing_key: PublicKey, message: bytes):
+    def single_pubkey(cls, signature, signing_key: PublicKey, message: bytes,
+                      index: int | None = None):
         sig = signature if isinstance(signature, AggregateSignature) else AggregateSignature(signature.point)
-        return cls(sig, [signing_key], message)
+        return cls(sig, [signing_key], message,
+                   None if index is None else [index])
 
     @classmethod
     def multiple_pubkeys(cls, signature, signing_keys: list[PublicKey],
-                         message: bytes):
+                         message: bytes, indices: list[int] | None = None):
         sig = signature if isinstance(signature, AggregateSignature) else AggregateSignature(signature.point)
-        return cls(sig, signing_keys, message)
+        return cls(sig, signing_keys, message, indices)
 
 
 def _rand_scalar() -> int:

@@ -2,9 +2,11 @@
 
 A BLS verifier has no weights: what crosses is the packed device state
 that ``lighthouse_tpu.jax_backend`` builds in ``_dispatch`` (numpy arrays
-of Montgomery byte limbs, infinity masks and RLC bits). The functions here
-turn exactly those arrays into the port's tensors, so the same operands can
-go through ``jax_backend._verify_jit`` and the port's ``_verify_core``.
+of Montgomery byte limbs, infinity masks and RLC bits), and the pubkey
+registry of ``lighthouse_tpu.blsrt.DevicePubkeyTable`` (uint8 limb
+planes). The functions here turn exactly those arrays into the port's
+tensors and table, so the same operands can go through
+``jax_backend._verify_jit`` and the port's ``_verify_core``.
 
 They also hold the byte repack used at the CUDA kernel boundary: the torch
 layout keeps 48 x 8-bit limbs in int32, the kernels work on 12 x 32-bit
@@ -40,19 +42,43 @@ def operands_from_numpy(px, py, pinf, sx, sy, sinf, mx, my, minf, r_bits,
     Any operand may already be a tensor (the device hash leaves mx, my,
     minf on the card); it moves only if it lies elsewhere. Returns (pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits) on ``device``.
     """
+    return (pubkey_operands(px, py, pinf, device)
+            + set_operands(sx, sy, sinf, mx, my, minf, r_bits, device))
+
+
+def pubkey_operands(px, py, pinf, device):
+    """The pubkey grid of :func:`operands_from_numpy` alone: (pk, pk_inf)."""
     S, K = np.asarray(pinf).shape
-    i32, b = torch.int32, torch.bool
     g1 = (S, K, N_LIMBS)
+    return (
+        (_tensor(px, torch.int32, g1, device), _tensor(py, torch.int32, g1, device)),
+        _tensor(pinf, torch.bool, (S, K), device),
+    )
+
+
+def set_operands(sx, sy, sinf, mx, my, minf, r_bits, device):
+    """The per-set operands of :func:`operands_from_numpy` alone: (sig,
+    sig_inf, msg, msg_inf, r_bits) on ``device``, for a verify whose
+    pubkeys come from elsewhere (the indexed gather)."""
+    S = np.asarray(sinf).shape[0]
+    i32, b = torch.int32, torch.bool
     g2 = (S, 2, N_LIMBS)
     return (
-        (_tensor(px, i32, g1, device), _tensor(py, i32, g1, device)),
-        _tensor(pinf, b, (S, K), device),
         (_tensor(sx, i32, g2, device), _tensor(sy, i32, g2, device)),
         _tensor(sinf, b, (S,), device),
         (_tensor(mx, i32, g2, device), _tensor(my, i32, g2, device)),
         _tensor(minf, b, (S,), device),
         _tensor(r_bits, i32, (S, np.asarray(r_bits).shape[-1]), device),
     )
+
+
+def table_from_numpy(x_u8, y_u8, n: int):
+    """A JAX ``DevicePubkeyTable``'s staging planes (``_host_x``,
+    ``_host_y``: uint8 [C, 48] Montgomery limbs, C >= n) and its length
+    -> the port's ``blsrt.DevicePubkeyTable`` holding the same n rows."""
+    from .blsrt import DevicePubkeyTable
+
+    return DevicePubkeyTable.from_planes(x_u8, y_u8, n)
 
 
 def limbs_to_words(limbs: torch.Tensor) -> torch.Tensor:

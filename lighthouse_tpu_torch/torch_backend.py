@@ -23,6 +23,12 @@ configurations:
   lanes are points at infinity, the neutral element everywhere.
 * Structural rejects (empty list, a set with no keys, an infinity
   signature) are answered on the host before any field math.
+* Pubkeys come from one of two places. Where every set carries validator
+  indices (``signing_key_indices``) that the registered device table
+  (``blsrt.set_device_table``) covers, the verify gathers the [S, K] grid
+  from the table on the device (``last_path`` "indexed"); otherwise the
+  host packs the grid from the points, through the cross-call row cache
+  with ``input_cache=True``.
 * Messages are hashed to G2 once per distinct message, on the device
   (``ops/tkernel_htc.py``: kernel K12, or K13 and K14 chained; the default
   on the card, as ``LHTPU_DEVICE_HTC`` is on the JAX package's accelerator)
@@ -53,11 +59,12 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from . import interop
+from . import blsrt, interop
 from .crypto.bls.constants import RAND_BITS
 from .crypto.bls.curve import g1_infinity, g2_infinity
 from .crypto.bls.hash_to_curve import hash_to_g2
 from .dedup import dedup_plan
+from .devices import next_pow2, resolve_device
 from .ops import field, msm
 from .ops import tkernel_calls as tc
 from .ops import tkernel_htc as th
@@ -77,10 +84,6 @@ from .ops.points import (
     pt_tree_sum_axis,
 )
 from .ops.tower import FP12_ONE, fp12_is_one
-
-
-def next_pow2(n: int) -> int:
-    return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
 @contextmanager
@@ -231,6 +234,28 @@ def _verify_core_fused(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits,
     return fp12_is_one(f) & sub_ok
 
 
+def _gathered(core):
+    """Wrap a verify core so its pubkeys come from the device table
+    (reference: ``jax_backend._gathered``): tx, ty uint8 [C, 48] and the
+    validator index grid idx int64 [S, K] take the place of ``pk``. The
+    gather comes first and widens only the [S, K] rows to int32."""
+
+    @torch.inference_mode()
+    def wrapped(tx, ty, idx, pk_inf, sig, sig_inf, msg, msg_inf, r_bits,
+                msm_idx=None, msm_valid=None):
+        pk = (tx[idx].to(torch.int32), ty[idx].to(torch.int32))
+        if msm_idx is None:  # the classic core takes no MSM schedule
+            return core(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits)
+        return core(pk, pk_inf, sig, sig_inf, msg, msg_inf, r_bits,
+                    msm_idx, msm_valid)
+
+    return wrapped
+
+
+_verify_indexed = _gathered(_verify_core)
+_verify_fused_indexed = _gathered(_verify_core_fused)
+
+
 class TorchBackend:
     """Batch verifier on one device: the card unless ``device`` says
     otherwise (``device="cpu"`` runs the plain versions of the kernels).
@@ -247,20 +272,29 @@ class TorchBackend:
     ``msm``: the fused path's signature accumulator. None (the default) and
     True take the bucketed MSM (kernels K5-K7, their plain versions on the
     CPU), as ``LHTPU_MSM_VERIFY`` defaults on; False the per-set scalar
-    multiplication (K3 G2) and tree. The classic path has no MSM."""
+    multiplication (K3 G2) and tree. The classic path has no MSM.
+
+    ``input_cache``: True turns on the cross-call caches of ``blsrt`` (the
+    pubkey rows of the host pack, the oracle's hash points, the device
+    hash's batches), as ``LHTPU_INPUT_CACHE`` does in the JAX package.
+    Off by default, where the JAX package's switch is on, because of what
+    it costs on the card (``chip_smoke.py``, H100 80GB HBM3 at 700 W): a
+    batch of 128 x 512 keys seen for the first time packs in 0.32-0.72 s
+    through the row cache against 0.17-0.23 s uncached (each key
+    serialized, looked up and inserted), and a repeat of the very same
+    batch, the cache's best case, saves ~0.13 s of pack and ~9 ms of hash,
+    so a batch must come back 1-3 times to pay its first sight. How often
+    real traffic repeats a batch or its keys is not measured; sets with
+    validator indices gather from the device table and skip the pack."""
 
     def __init__(self, device=None, fused=None, device_htc=None,
-                 htc_resident=True, msm=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "TorchBackend: no CUDA device; pass device='cpu' to run "
-                    "the plain versions on the host"
-                )
-            device = "cuda"
-        self.device = torch.device(device)
+                 htc_resident=True, msm=None, input_cache=False):
+        self.device = resolve_device(device, "TorchBackend")
         self.fused = self.device.type == "cuda" if fused is None else bool(fused)
         self._core = _verify_core_fused if self.fused else _verify_core
+        self._indexed_core = (_verify_fused_indexed if self.fused
+                              else _verify_indexed)
+        self.input_cache = bool(input_cache)
         self.msm = self.fused if msm is None else bool(msm)
         if self.msm and not self.fused:
             raise ValueError("TorchBackend: the MSM runs on the fused path only")
@@ -275,11 +309,15 @@ class TorchBackend:
         self.last_stage_seconds: dict = {}
         # Device of the operand tensors of the most recent dispatch.
         self.last_operand_device: torch.device | None = None
+        # Path of the most recent dispatch: "indexed" (pubkeys gathered from
+        # the device table), "fused" or "classic"; None after a host reject.
+        self.last_path: str | None = None
 
     def verify_signature_sets(self, sets) -> bool:
         stages: dict[str, float] = {}
         self.last_stage_seconds = stages
         self.last_operand_device = None
+        self.last_path = None
         if not sets:
             return False
         # Host-side structural rejections.
@@ -295,7 +333,10 @@ class TorchBackend:
         inf1, inf2 = g1_infinity(), g2_infinity()
 
         with _stage("pack", stages):
-            px, py, pinf = _pack_pubkey_grid(sets, S, K, n, inf1)
+            table_args = self._table_gather_args(sets, S, K)
+            if table_args is None:
+                cache = blsrt.PUBKEY_ROW_CACHE if self.input_cache else None
+                px, py, pinf = _pack_pubkey_grid(sets, S, K, n, inf1, cache)
             sigs = [s.signature.point for s in sets] + [inf2] * (S - n)
             sx, sy, sinf = g2_to_dev(sigs)
         with _stage("hash_to_curve", stages):
@@ -310,13 +351,23 @@ class TorchBackend:
                 sched = msm.build_schedule(r_u64, msm.max_rounds(S),
                                            np.arange(S) >= n)
         with _stage("dispatch", stages):
-            ops = interop.operands_from_numpy(
-                px, py, pinf, sx, sy, sinf, mx, my, minf, r_bits, self.device
-            )
+            dev = self.device
+            if table_args is not None:
+                tx, ty, idx, lane_inf = table_args
+                head = (tx, ty, torch.from_numpy(idx).to(dev, torch.int64),
+                        torch.from_numpy(lane_inf).to(dev))
+                core, path = self._indexed_core, "indexed"
+            else:
+                head = interop.pubkey_operands(px, py, pinf, dev)
+                core = self._core
+                path = "fused" if self.fused else "classic"
+            ops = head + interop.set_operands(sx, sy, sinf, mx, my, minf,
+                                              r_bits, dev)
             if sched is not None:
-                ops += tuple(torch.from_numpy(a).to(self.device) for a in sched)
-            self.last_operand_device = ops[1].device
-            ok = self._core(*ops)
+                ops += tuple(torch.from_numpy(a).to(dev) for a in sched)
+            self.last_operand_device = ops[len(head) - 1].device
+            ok = core(*ops)
+            self.last_path = path
         with _stage("device_sync", stages):
             return bool(ok.item())
 
@@ -329,23 +380,35 @@ class TorchBackend:
         of its first message, maps (K12, or K13 and the add), finishes (K14
         unless K12 ran, then K2), and gathers by the plan's index on the
         device; the padding rows are infinity. The host route hashes with
-        the oracle and packs limbs on the host."""
+        the oracle and packs limbs on the host. With ``input_cache`` the
+        device route keeps the finished batch in ``blsrt.HTC_BATCH_CACHE``
+        (a warm call launches no hash kernel; the cached tensors are only
+        ever read, the gather makes new ones) and the host route each
+        message's point in ``blsrt.HTC_CACHE``."""
         with _stage("htc_dedup", stages):
             plan = dedup_plan(messages)
         n = len(messages)
         if not self.device_htc:
             with _stage("htc_map", stages):
-                memo = [hash_to_g2(m) for m in plan.distinct]
+                memo = [self._oracle_hash(m) for m in plan.distinct]
             with _stage("htc_cofactor", stages):
                 rows = [memo[j] for j in plan.index] + [inf2] * (S - n)
                 return g2_to_dev(rows)
         D = next_pow2(len(plan.distinct))
         padded = plan.distinct + [plan.distinct[0]] * (D - len(plan.distinct))
-        with _stage("htc_map", stages):
-            Q, cleared = th.hash_to_g2_map_dev(
-                padded, device=self.device, resident=self.htc_resident)
-        with _stage("htc_cofactor", stages):
-            hx, hy, hinf = th.hash_to_g2_finish_dev(Q, cleared)
+        # the device is part of the key: backends on two devices share the
+        # module cache, and a tensor must not reach another device's verify
+        key = (self.device, self.htc_resident, tuple(padded))
+        out = blsrt.HTC_BATCH_CACHE.get(key) if self.input_cache else None
+        if out is None:
+            with _stage("htc_map", stages):
+                Q, cleared = th.hash_to_g2_map_dev(
+                    padded, device=self.device, resident=self.htc_resident)
+            with _stage("htc_cofactor", stages):
+                out = th.hash_to_g2_finish_dev(Q, cleared)
+            if self.input_cache:
+                blsrt.HTC_BATCH_CACHE.put(key, out)
+        hx, hy, hinf = out
         idx = np.zeros(S, np.int64)
         idx[:n] = plan.index
         pad_inf = np.ones(S, bool)
@@ -354,15 +417,100 @@ class TorchBackend:
         pad_inf = torch.from_numpy(pad_inf).to(self.device)
         return hx[idx], hy[idx], hinf[idx] | pad_inf
 
+    def _oracle_hash(self, message):
+        """The host oracle's H(message), through ``HTC_CACHE`` when the
+        input caches are on."""
+        if not self.input_cache:
+            return hash_to_g2(message)
+        pt = blsrt.HTC_CACHE.get(message)
+        if pt is None:
+            pt = hash_to_g2(message)
+            blsrt.HTC_CACHE.put(message, pt)
+        return pt
 
-def _pack_pubkey_grid(sets, S: int, K: int, n: int, inf1):
-    """[S, K] pubkey limb grid, padding lanes at infinity."""
-    pk_rows = []
-    for s in sets:
-        row = [pk.point for pk in s.signing_keys]
-        row += [inf1] * (K - len(row))
-        pk_rows.append(row)
-    pk_rows += [[inf1] * K] * (S - n)
-    flat = [p for row in pk_rows for p in row]
-    px, py, pinf = g1_to_dev(flat)
+    def _table_gather_args(self, sets, S: int, K: int):
+        """(tx, ty, idx int32 [S, K], lane_inf bool [S, K]) when every set
+        carries validator indices that the registered device table covers,
+        else None, and the host packs the grid (reference:
+        ``JaxBackend._table_gather_args``, with the same declines: no table,
+        an empty table, indices missing or of the wrong length, an index
+        past the table; and a negative index). A table that lives on
+        another device than this backend's raises ValueError: it is never
+        moved behind the caller's back."""
+        table = blsrt.get_device_table()
+        if table is None or len(table) == 0:
+            return None
+        rows = []
+        for s in sets:
+            idxs = getattr(s, "signing_key_indices", None)
+            if idxs is None or len(idxs) != len(s.signing_keys):
+                return None
+            if idxs and (max(idxs) >= len(table) or min(idxs) < 0):
+                return None
+            rows.append(idxs)
+        rows += [[]] * (S - len(sets))
+        if table.device is not None and table.device != self.device:
+            raise ValueError(
+                f"TorchBackend on {self.device}: the registered pubkey table "
+                f"lives on {table.device}"
+            )
+        idx, lane_inf = table.gather_args(rows, K)
+        tx, ty = table.device_arrays(self.device)
+        return tx, ty, idx, lane_inf
+
+
+def _pack_pubkey_grid(sets, S: int, K: int, n: int, inf1, cache=None):
+    """[S, K] pubkey limb grid, padding lanes at infinity (reference:
+    ``JaxBackend._pack_pubkey_grid``); the same bytes with and without
+    ``cache``.
+
+    With a ``blsrt.PubkeyRowCache``, each distinct pubkey's Montgomery rows
+    are made once and kept in its arena; a warm batch rebuilds the grid
+    with dict lookups and one gather. The misses are converted in one
+    batch. Keys are the pubkeys' serialized bytes (``blsrt.pubkey_cache_key``
+    where a key was built from a point).
+
+    A batch with more distinct keys than the arena has slots goes uncached
+    (counted as ``bypass``): its inserts would evict rows that lanes of
+    this batch already point at before the gather. Within capacity the
+    lookup refreshes every hit of the batch first, so an eviction only
+    takes a row that no lane of this batch names."""
+    keys = None
+    if cache is not None:
+        flat_pks = [pk for s in sets for pk in s.signing_keys]
+        keys = [pk._bytes for pk in flat_pks]
+        if any(k is None for k in keys):
+            keys = [blsrt.pubkey_cache_key(pk) for pk in flat_pks]
+        if len(set(keys)) > cache.capacity:
+            cache.counts["bypass"] += len(keys)
+            keys = None
+    if keys is None:
+        pk_rows = []
+        for s in sets:
+            row = [pk.point for pk in s.signing_keys]
+            row += [inf1] * (K - len(row))
+            pk_rows.append(row)
+        pk_rows += [[inf1] * K] * (S - n)
+        flat = [p for row in pk_rows for p in row]
+        px, py, pinf = g1_to_dev(flat)
+        return px.reshape(S, K, 48), py.reshape(S, K, 48), pinf.reshape(S, K)
+
+    idx, misses = cache.lookup(keys)
+    if misses:
+        mx, my, minf = g1_to_dev([flat_pks[i].point for i in misses])
+        for j, i in enumerate(misses):
+            idx[i] = cache.insert(keys[i], mx[j], my[j], bool(minf[j]))
+    gx, gy, ginf = cache.gather(idx)
+    if len(flat_pks) == S * K:
+        # every lane is a real key (uniform K, no padding sets): the gather
+        # is the grid
+        return gx.reshape(S, K, 48), gy.reshape(S, K, 48), ginf.reshape(S, K)
+    px = np.zeros((S * K, 48), np.int32)
+    py = np.zeros((S * K, 48), np.int32)
+    pinf = np.ones((S * K,), bool)
+    pos = np.asarray([si * K + ki for si, s in enumerate(sets)
+                      for ki in range(len(s.signing_keys))], np.int64)
+    px[pos] = gx
+    py[pos] = gy
+    pinf[pos] = ginf
     return px.reshape(S, K, 48), py.reshape(S, K, 48), pinf.reshape(S, K)

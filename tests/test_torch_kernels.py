@@ -666,3 +666,49 @@ def test_device_hash_matches_oracle_resident_and_chained():
         assert got[0].device.type == "cuda"
         for g, w in zip(got, want):
             assert np.array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.cuda
+def test_table_build_on_card_matches_cpu_and_golden():
+    """The registry built on the card (K3 G1 once, then per step the mixed
+    addition on K1 and K2 G1) is byte-equal to the CPU build and to the
+    golden build (K3 G1 and K2 G1 per chunk)."""
+    _card()
+    from lighthouse_tpu_torch import blsrt
+
+    before = (tc.K3_G1.launches, tc.K2_G1.launches)
+    card = blsrt.build_sequential_table(40, chunk=16)
+    assert (tc.K3_G1.launches, tc.K2_G1.launches) == (before[0] + 1, before[1] + 3)
+    for other in (blsrt.build_sequential_table(40, chunk=16, device="cpu"),
+                  blsrt._build_sequential_table_scalarmul(40, chunk=16)):
+        for mine, theirs in zip(card.host_planes(), other.host_planes()):
+            assert np.array_equal(mine, theirs)
+
+
+@pytest.mark.cuda
+def test_indexed_verify_on_card_and_the_table_device():
+    """Sets with validator indices verify from the table on the card (the
+    indexed path); a backend on another device refuses that table."""
+    _card()
+    from lighthouse_tpu_torch import blsrt
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.torch_backend import TorchBackend
+
+    sks = [api.SecretKey.from_int(i + 7) for i in range(3)]
+    m0, m1 = b"\x11" * 32, b"\x22" * 32
+    sets = [api.SignatureSet.single_pubkey(sks[0].sign(m0), sks[0].public_key(), m0,
+                                           index=0),
+            api.SignatureSet.multiple_pubkeys(
+                api.AggregateSignature.aggregate([sks[1].sign(m1), sks[2].sign(m1)]),
+                [sks[1].public_key(), sks[2].public_key()], m1, indices=[1, 2])]
+    table = blsrt.DevicePubkeyTable()
+    table.append_pubkeys([sk.public_key() for sk in sks])
+    blsrt.set_device_table(table)
+    try:
+        be = TorchBackend()
+        assert be.verify_signature_sets(sets) is True
+        assert be.last_path == "indexed" and table.device.type == "cuda"
+        with pytest.raises(ValueError, match="lives on cuda"):
+            TorchBackend(device="cpu").verify_signature_sets(sets)
+    finally:
+        blsrt.set_device_table(None)
