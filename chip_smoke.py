@@ -99,7 +99,24 @@ In order, and failing (nonzero exit, no result line) at the first fault:
     from empty caches, cold then warm (the warm call launches no K12), with
     the caches' report; the warm pubkey grid byte-equal to the uncached
     one, each pack timed alone; the table unregistered after;
-11. K1 at every size the main path launched it with (bit equality, time
+11. grouped verdicts and poison triage: K8 at S + G = 160 lanes, K2 G2 at
+    G = 32 lanes (one accumulator at infinity), K9, K10 (both forms) and
+    K11 (all three modes) at 32 lanes, against their plain versions as in
+    phase 4, and the 9-launch final exponentiation at 32 lanes against the
+    classic one; the main batch through
+    ``TorchBackend().verify_signature_sets_triaged`` clean (1 dispatch),
+    with sets 0 and 1 swapped (one poisoned group, 2 dispatches) and with
+    pairs (0, 1), (40, 77), (100, 127) swapped (five poisoned groups, 2
+    dispatches), each on the "fused+triage" path with the verdicts as
+    constructed and one pack and one hash; the indexed batch with one pair
+    swapped against the 1M registry, registered again ("indexed+triage");
+    ``api.bisect_verify_sets`` on the one-group batch, its calls of
+    ``verify_signature_sets`` and seconds; three turns of the clean
+    batch's triage alternating with ``verify_signature_sets``; the
+    reference's small batch (S=4, K=2, set 2 bad) through the fused path
+    with the device hash and the host hash (``VERDICT_GROUPS`` set to 2: a
+    refinement round) and the classic path, against the oracle per set;
+12. K1 at every size the main path launched it with (bit equality, time
     per call, device-only L2-warm and L2-cold, host enqueue) and its
     totals per verify; the
     device time of a default verify summed from the kernels' device-only
@@ -124,7 +141,13 @@ cold cached call the default path's list, the warm cached call that list
 without K12 (and K12 among those it may not launch). No verify launches
 K15: its launches are those of the K4-against-K15 check. K3 G1 and K2 G1
 also carry, under ``table_build`` on the kernels line, their times, bound
-and launches at the table build's shapes.
+and launches at the table build's shapes. Each triage's counts are zeroed
+just before it and read after: every grouped dispatch launches K2 G1
+twice, K2 G2, K3 G1, K3 G2, K4, K8 and K9 once, K10 five times and K11
+three times, the call K12 and K2 G2 once more for the hash, and none of
+K5-K7, K13-K15; ``triage_launches`` on the kernels line holds the clean
+batch's (one dispatch), and K2 G2 and K8-K11 carry, under ``triage``, their
+times, bound and launches per grouped dispatch at its shapes.
 
 Imports nothing of JAX or of the JAX package. Data comes from a seeded
 numpy generator (secret keys sk_i = base + i, so pk_{i+1} = pk_i + G1).
@@ -1953,11 +1976,14 @@ def verify_path(torch, sets, label: str, options: dict, must, must_not,
     return runs
 
 
-def swapped(api, sets):
+def swapped(api, sets, pairs=((0, 1),)):
+    """The batch with the signatures of each pair (i, j) exchanged: sets i
+    and j then fail, every other set verifies."""
     bad = list(sets)
-    for i, j in ((0, 1), (1, 0)):
-        bad[i] = api.SignatureSet(sets[j].signature, sets[i].signing_keys,
-                                  sets[i].message, sets[i].signing_key_indices)
+    for p in pairs:
+        for i, j in (p, p[::-1]):
+            bad[i] = api.SignatureSet(sets[j].signature, sets[i].signing_keys,
+                                      sets[i].message, sets[i].signing_key_indices)
     return bad
 
 
@@ -2199,7 +2225,344 @@ def input_path(torch, np, sets, must, must_not) -> dict:
     blsrt.reset_input_caches()
     log(f"input path phase {time.perf_counter() - t_phase:.1f} s")
     return {"entries": entries, "build_s": build_s, "golden_s": golden_s,
-            "indexed": indexed, "turns": turns, "cache": cache_runs}
+            "indexed": indexed, "turns": turns, "cache": cache_runs,
+            "table": table, "isets": isets}
+
+
+# ------------------------------------------------- phase 11: poison triage
+
+
+def per_grouped_dispatch(name: str) -> int:
+    """Launches of a fused kernel per grouped dispatch (the hash's left
+    out): two K2 G1 (the aggregates and [r] pk), one K2 G2 (the group
+    accumulators), one K3 G1, K3 G2, K4, K8, K9, five K10, three K11."""
+    return {"to_affine_g1": 2, "to_affine_g2": 1, "scalar_mul_g1": 1,
+            "scalar_mul_g2": 1, "subgroup_fast": 1, "miller": 1, "easy_exp": 1,
+            "pow_x": 5, "comb": 3}.get(name, 0)
+
+
+TRIAGE_GROUPS = 32          # torch_backend.VERDICT_GROUPS
+TRIAGE_BATCHES = (          # label, swapped pairs, dispatches
+    ("clean", (), 1),
+    ("one poisoned group", ((0, 1),), 2),
+    ("five poisoned groups", ((0, 1), (40, 77), (100, 127)), 2),
+)
+TRIAGE_TURNS = 3            # clean triage / verify_signature_sets, alternating
+
+
+def check_triage_kernels(torch, np, sets, hashes) -> dict:
+    """The kernels whose shapes the grouped dispatch changes, against their
+    plain versions at those shapes: K8 on S + G lanes (the S set pairs and G
+    check pairs of -g1 with a group accumulator, one of them at infinity as
+    a group of padding sets has it), K2 G2 on the G accumulators (one at
+    infinity), K9-K11 on G lanes. Returns {kernel name: entry}."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.crypto.bls.curve import g1_generator
+    from lighthouse_tpu_torch.ops import coop, pairing, points, tower
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+    from lighthouse_tpu_torch.ops.points import FP2_OPS
+
+    S, G = len(sets), TRIAGE_GROUPS
+    c = fp_product_counts(P)
+    dev = torch.device("cuda")
+
+    def cuda(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+
+    out = {}
+    # K2 G2 on G accumulators: [r] sig of G signatures, the last at infinity
+    x2, y2, inf2 = points.g2_to_dev([s.signature.point for s in sets[:G]])
+    inf2[G - 1] = True
+    bits = points.scalars_to_bits([int(r) for r in seeded_scalars(np, 11, G)], 64)
+    x2, y2, inf2_t, bits = cuda(x2, y2, inf2, bits)
+    J = tuple(t.contiguous() for t in points.pt_scalar_mul_bits(
+        FP2_OPS, (x2, y2), inf2_t, bits))
+    out[tc.K2_G2.name] = check_kernel(
+        torch, tc.K2_G2, f"K2 to_affine_g2 {G} lanes (triage)",
+        lambda: tc.to_affine_g2(J), lambda: points.pt_to_affine(FP2_OPS, J),
+        G * 16, G * (3 * 384 + 2 * 384 + 1), int_ops=G * gcd_inverse_ops(),
+        raw_only=True)
+    if tc.to_affine_g2(J)[2].tolist() != [False] * (G - 1) + [True]:
+        raise AssertionError("K2 G2 (triage): the infinity flags of the accumulators")
+    acc = tc.to_affine_g2(J)
+
+    # K8 on S + G lanes: pubkeys with the hashes, then -g1 with the G
+    # accumulators above; P at infinity on lane 3, Q on lane 125
+    g1n = g1_generator().neg()
+    px, py, pinf = points.g1_to_dev([s.signing_keys[0].point for s in sets] + [g1n] * G)
+    qx, qy, qinf = points.g2_to_dev(hashes)
+    pinf[3] = qinf[125] = True
+    px, py, pinf_t, qx, qy, qinf_t = cuda(px, py, pinf, qx, qy, qinf)
+    qx, qy = torch.cat([qx, acc[0]]), torch.cat([qy, acc[1]])
+    qinf_t = torch.cat([qinf_t, acc[2]])
+    live = int((~(pinf_t | qinf_t)).sum())
+    out[tc.K8.name] = check_kernel(
+        torch, tc.K8, f"K8 miller {S + G} lanes (triage)",
+        lambda: tc.miller_loop((px, py), pinf_t, (qx, qy), qinf_t),
+        lambda: tc.miller_loop_seg((px, py), pinf_t, (qx, qy), qinf_t),
+        live * (63 * (c["fp12_sqr"] + c["dbl_step"] + c["sparse"])
+                + 5 * (c["add_step"] + c["sparse"])),
+        (S + G) * (2 * 192 + 2 * 384 + 2 + 2304), raw_only=True)
+
+    # K9-K11 on G lanes of Miller values: the check lanes, the last one
+    # (its accumulator at infinity) Fp12 one
+    f = tc.miller_loop_seg((px, py), pinf_t, (qx, qy), qinf_t)[S:].contiguous()
+    k9 = coop.rounds_per_lane(coop.easy_exp_plan())[2] + 1
+    k10 = 63 * c["fp12_sqr"] + 5 * c["fp12_mul"]
+    k11 = {"b": c["fp12_frob"] + c["fp12_mul"],
+           "c": 2 * c["fp12_frob"] + 2 * c["fp12_mul"],
+           "final": c["fp12_sqr"] + 2 * c["fp12_mul"]}
+    check_kernel(torch, tc.K9, f"K9 easy_exp {G} lanes against its plan (triage)",
+                 lambda: tc.easy_exp(f), lambda: coop.easy_exp_steps(f),
+                 0, 0, time_it=False, raw_only=True)
+    out[tc.K9.name] = check_kernel(
+        torch, tc.K9, f"K9 easy_exp {G} lanes (triage)",
+        lambda: tc.easy_exp(f), lambda: tc.easy_exp_plain(f),
+        G * k9, G * 2 * 2304, int_ops=G * gcd_inverse_ops())
+    g = tc.easy_exp_plain(f)
+    for xm1 in (True, False):
+        e = check_kernel(
+            torch, tc.K10, f"K10 pow_x xm1={xm1} {G} lanes (triage)",
+            lambda: tc.pow_x(g, xm1), lambda: tc.pow_x_plain(g, xm1),
+            G * (k10 + (c["fp12_mul"] if xm1 else 0)), G * 2 * 2304, raw_only=True)
+        if xm1:
+            out[tc.K10.name] = e
+    u = tc.pow_x_plain(g, False)
+    for mode in tc.COMB_MODES:
+        e = check_kernel(
+            torch, tc.K11, f"K11 comb {mode} {G} lanes (triage)",
+            lambda: tc.comb(u, g, mode), lambda: tc.comb_plain(u, g, mode),
+            G * k11[mode], G * 3 * 2304, raw_only=True)
+        if mode == "c":
+            out[tc.K11.name] = e
+    got = tc.final_exp_kernel(f)
+    classic = pairing.final_exponentiation(f)
+    _, canon, _ = compare(torch, got, classic)
+    if not canon or not torch.equal(tower.fp12_is_one(got), tower.fp12_is_one(classic)):
+        raise AssertionError("final_exp_kernel on the G lanes != "
+                             "pairing.final_exponentiation after canonical")
+    log(f"final_exp_kernel (9 launches) on {G} lanes: equal to "
+        "pairing.final_exponentiation after canonical")
+    return out
+
+
+def run_triage(torch, backend, sets, label: str, must, must_not):
+    """One verify_signature_sets_triaged with every kernel count zeroed just
+    before it and read just after; the kernels in ``must`` have to run,
+    those in ``must_not`` may not, and the pack and the hash run once."""
+    from lighthouse_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    with GpuSampler() as gpu:
+        t0 = time.perf_counter()
+        got = backend.verify_signature_sets_triaged(sets)
+        seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    stages = backend.last_stage_seconds
+    triage = dict(backend.last_triage)
+    dev = backend.last_operand_device
+    log(f"{label}: {got.count(False)} of {len(got)} sets False in {seconds:.3f} s on "
+        f"the {backend.last_path} path; triage {json.dumps(triage)}; stages "
+        f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, runs "
+        f"{json.dumps(stages.calls)}; kernel launches {json.dumps(launches)}; "
+        f"nvidia-smi over the triage {json.dumps(gpu.summary)}")
+    if dev is None or dev.type != "cuda":
+        raise AssertionError(f"{label}: operands were on {dev}, not the card")
+    if (stages.calls.get("pack"), stages.calls.get("hash_to_curve")) != (1, 1):
+        raise AssertionError(f"{label}: pack and hash_to_curve ran "
+                             f"{stages.calls.get('pack')} and "
+                             f"{stages.calls.get('hash_to_curve')} times, not once")
+    for name in must:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was never launched")
+    for name in must_not:
+        if launches[name]:
+            raise AssertionError(f"{label}: kernel {name} ran on this path")
+    return got, {"seconds": seconds, "launches": launches, "stages": dict(stages),
+                 "triage": triage, "path": backend.last_path, "gpu": gpu.summary}
+
+
+def expect_triage(label: str, run: dict, got, want, path: str, dispatches: int,
+                  per_dispatch: dict, once=()) -> None:
+    """The verdicts as constructed, the path, the dispatches and rounds, and
+    each kernel of ``per_dispatch`` launched that many times per dispatch,
+    plus once per call for those in ``once`` (the hash's)."""
+    tr = run["triage"]
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"{label}: verdicts differ from the construction at {bad}")
+    if run["path"] != path or (tr["dispatches"], tr["rounds"]) != (dispatches, dispatches):
+        raise AssertionError(f"{label}: {tr['dispatches']} dispatches in {tr['rounds']} "
+                             f"rounds on the {run['path']} path, not {dispatches} "
+                             f"on the {path} path")
+    for name in {*per_dispatch, *once}:
+        k = per_dispatch.get(name, 0)
+        if run["launches"][name] != k * dispatches + (name in once):
+            raise AssertionError(f"{label}: kernel {name} launched "
+                                 f"{run['launches'][name]} times, not {k} per dispatch"
+                                 + (" and once for the hash" if name in once else ""))
+
+
+def mixed_sets(api, n: int, bad=()):
+    """The reference's small triage batch: n sets alternating one key and
+    an aggregate of two (secret keys 7..14, message i + 1 repeated); the
+    sets in ``bad`` signed over another message."""
+    sks = [api.SecretKey.from_int(i + 7) for i in range(8)]
+    out = []
+    for i in range(n):
+        m = bytes([i + 1]) * 32
+        signed = b"\xee" * 32 if i in bad else m
+        if i % 2 == 0:
+            sk = sks[i % 8]
+            out.append(api.SignatureSet.single_pubkey(sk.sign(signed), sk.public_key(), m))
+        else:
+            a, b = sks[i % 8], sks[(i + 3) % 8]
+            agg = api.AggregateSignature.aggregate([a.sign(signed), b.sign(m)])
+            out.append(api.SignatureSet.multiple_pubkeys(
+                agg, [a.public_key(), b.public_key()], m))
+    return out
+
+
+def triage_phase(torch, np, sets, hashes, inputs, paths) -> dict:
+    """Grouped verdicts and poison triage: the kernels at the grouped
+    dispatch's shapes, then the main batch clean and with poisoned groups
+    through ``TorchBackend().verify_signature_sets_triaged``, the indexed
+    batch against the registry, the host bisection, turns against the
+    one-bool verify, and small batches through every configuration against
+    the oracle per set. Returns the kernel entries and the runs."""
+    from lighthouse_tpu_torch import blsrt, torch_backend
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import mont_mul, msm
+    from lighthouse_tpu_torch.ops import tkernel_calls as tc
+    from lighthouse_tpu_torch.ops import tkernel_htc as th
+    from lighthouse_tpu_torch.torch_backend import TorchBackend
+
+    t_phase = time.perf_counter()
+    if torch_backend.VERDICT_GROUPS != TRIAGE_GROUPS:
+        raise AssertionError(f"VERDICT_GROUPS is {torch_backend.VERDICT_GROUPS}, "
+                             f"not {TRIAGE_GROUPS}")
+    S, K = len(sets), len(sets[0].signing_keys)
+    entries = check_triage_kernels(torch, np, sets, hashes)
+
+    # every grouped dispatch: the verify kernels with K3 G2 for the
+    # accumulators, no MSM; the hash once per triage
+    hash_names = [th.K12.name, th.K13.name, th.K14.name]
+    must = [mont_mul.K1.name, tc.K2_G1.name, tc.K2_G2.name, tc.K3_G1.name,
+            tc.K3_G2.name, tc.K4.name, tc.K8.name, tc.K9.name, tc.K10.name,
+            tc.K11.name, th.K12.name]
+    must_not = [msm.K5.name, msm.K6.name, msm.K7.name, th.K13.name, th.K14.name,
+                tc.K15.name]
+    per_dispatch = {k.name: per_grouped_dispatch(k.name) for k in (
+        tc.K2_G1, tc.K2_G2, tc.K3_G1, tc.K3_G2, tc.K4, tc.K8, tc.K9, tc.K10, tc.K11)}
+    once = (th.K12.name, tc.K2_G2.name)  # the device hash: K12, then K2 G2
+    be = TorchBackend()
+    runs = {}
+    for label, pairs, dispatches in TRIAGE_BATCHES:
+        batch = swapped(api, sets, pairs)
+        want = [True] * S
+        for i, j in pairs:
+            want[i] = want[j] = False
+        got, run = run_triage(torch, be, batch, f"triage {label} S={S} K={K}",
+                              must, must_not)
+        expect_triage(label, run, got, want, "fused+triage", dispatches,
+                      per_dispatch, once)
+        poisoned = len({i // (S // TRIAGE_GROUPS) for p in pairs for i in p})
+        tr = run["triage"]
+        if (tr["groups"], tr["poisoned_groups"]) != (TRIAGE_GROUPS, poisoned + 2 * len(pairs)):
+            raise AssertionError(f"{label}: {tr['groups']} groups, "
+                                 f"{tr['poisoned_groups']} poisoned over the rounds")
+        runs[label] = run
+
+    # the indexed batch against the 1M registry, one pair swapped
+    blsrt.set_device_table(inputs["table"])
+    try:
+        want = [i > 1 for i in range(S)]
+        got, run = run_triage(torch, be, swapped(api, inputs["isets"]),
+                              f"indexed triage one pair swapped S={S} K={K}",
+                              must, must_not)
+        expect_triage("indexed triage", run, got, want, "indexed+triage", 2,
+                      per_dispatch, once)
+        runs["indexed"] = run
+    finally:
+        blsrt.set_device_table(None)
+
+    # the host bisection over verify_signature_sets, on the one-group batch
+    calls = []
+    verify = api.verify_signature_sets
+
+    def counted(batch, device=None):
+        calls.append(len(batch))
+        return verify(batch, device=device)
+
+    want = [i > 1 for i in range(S)]
+    batch = swapped(api, sets)
+    api.verify_signature_sets = counted
+    try:
+        t0 = time.perf_counter()
+        got = api.bisect_verify_sets(batch)
+        bisect_s = time.perf_counter() - t0
+    finally:
+        api.verify_signature_sets = verify
+    if got != want:
+        raise AssertionError("host bisection: verdicts differ from the construction")
+    log(f"host bisection (api.bisect_verify_sets) of the one-poisoned-group batch: the "
+        f"same verdicts in {bisect_s:.3f} s over {len(calls)} verify_signature_sets "
+        f"calls of {json.dumps(calls)} sets; the triage "
+        f"{runs['one poisoned group']['seconds']:.3f} s in "
+        f"{runs['one poisoned group']['triage']['dispatches']} dispatches")
+
+    # the clean batch's triage against the one-bool verify, alternating
+    turns = {"triage": [], "verify": []}
+    for turn in range(TRIAGE_TURNS):
+        got, run = run_triage(torch, be, sets, f"triage turn {turn} S={S} K={K}",
+                              must, must_not)
+        expect_triage(f"triage turn {turn}", run, got, [True] * S, "fused+triage",
+                      1, per_dispatch, once)
+        turns["triage"].append(run)
+        ok, run = run_verify(torch, be, sets, f"verify turn {turn} S={S} K={K}",
+                             *paths["fused"][1:])
+        if ok is not True:
+            raise AssertionError(f"verify turn {turn}: the valid batch did not verify")
+        turns["verify"].append(run)
+    for label, rs in turns.items():
+        secs = [r["seconds"] for r in rs]
+        log(f"{label} over {len(secs)} turns: {json.dumps([round(x, 4) for x in secs])} s, "
+            f"median {statistics.median(secs):.4f} s; dispatch "
+            f"{json.dumps([round(r['stages']['dispatch'], 4) for r in rs])} s, "
+            f"device_sync {json.dumps([round(r['stages']['device_sync'], 4) for r in rs])} s")
+
+    # small batches through every configuration against the oracle per set
+    small = mixed_sets(api, 4, bad=(2,))
+    want = [api.verify_signature_sets_python([s]) for s in small]
+    if want != [True, True, False, True]:
+        raise AssertionError(f"the oracle on the small batch: {want}")
+    configs = {  # options, kernels that must / may not run, groups, dispatches
+        "fused": ({}, must, must_not, 2, 2),
+        "fused host-hash": ({"device_htc": False},
+                            [m for m in must if m not in hash_names],
+                            must_not + hash_names, 2, 2),
+        "classic host-hash": ({"fused": False, "device_htc": False}, [mont_mul.K1.name],
+                              must[1:] + must_not + hash_names, TRIAGE_GROUPS, 1),
+    }
+    small_runs = {}
+    for name, (options, ok_must, ok_not, groups, dispatches) in configs.items():
+        be_small = TorchBackend(**options)
+        torch_backend.VERDICT_GROUPS = groups
+        try:
+            got, run = run_triage(torch, be_small, small,
+                                  f"{name} small triage S=4 K=2 G={min(groups, 4)}",
+                                  ok_must, ok_not)
+        finally:
+            torch_backend.VERDICT_GROUPS = TRIAGE_GROUPS
+        path = ("classic" if name.startswith("classic") else "fused") + "+triage"
+        expect_triage(f"{name} small", run, got, want, path, dispatches, {})
+        small_runs[name] = run
+    log(f"small batches: {', '.join(configs)} agree with the pure-Python oracle "
+        "per set (True, True, False, True)")
+    log(f"triage phase {time.perf_counter() - t_phase:.1f} s")
+    return {"entries": entries, "runs": runs, "turns": turns, "small": small_runs,
+            "bisect_s": bisect_s, "bisect_calls": calls}
 
 
 # ----------------------------------------------------------------- main
@@ -2302,6 +2665,9 @@ def main() -> int:
     inputs = input_path(torch, np, sets, *paths["fused"][1:])
     for name, e in inputs["entries"].items():
         fused[name]["table_build"] = e
+    triage = triage_phase(torch, np, sets, hashes, inputs, paths)
+    for name, e in triage["entries"].items():
+        fused[name]["triage"] = e
     log(f"per verify of S={N_SETS} x K={N_KEYS}: fused {fused_runs['valid']['seconds']:.3f} s "
         f"(device hash, MSM; swapped {fused_runs['poisoned']['seconds']:.3f} s), "
         f"fused {scan_runs['valid']['seconds']:.3f} s (device hash, scan; swapped "
@@ -2317,6 +2683,16 @@ def main() -> int:
         f"warm {json.dumps([round(r['warm']['seconds'], 3) for r in inputs['cache']])} s; "
         f"1M table build "
         f"{inputs['build_s']:.3f} s (golden {inputs['golden_s']:.3f} s)")
+    tr = triage["runs"]
+    log(f"per triage of S={N_SETS} x K={N_KEYS}: "
+        + ", ".join(f"{label} {r['seconds']:.3f} s ({r['triage']['dispatches']} "
+                    f"dispatches)" for label, r in tr.items())
+        + f"; turns {json.dumps([round(r['seconds'], 3) for r in triage['turns']['triage']])} "
+        f"against verify_signature_sets "
+        f"{json.dumps([round(r['seconds'], 3) for r in triage['turns']['verify']])}; host "
+        f"bisection of the one-poisoned-group batch {triage['bisect_s']:.3f} s in "
+        f"{len(triage['bisect_calls'])} verifies; small S=4 "
+        + ", ".join(f"{k} {r['seconds']:.3f} s" for k, r in triage["small"].items()))
 
     # launches from the run of the path each kernel belongs to: the main
     # path's; the scan's for K3 G2; the chained hash's small batch for K13
@@ -2332,8 +2708,12 @@ def main() -> int:
     time_at_path_shape(torch, np, k1, fused_runs["valid"]["sizes"][k1_name], REPS)
     entries = [k1] + [fused[n] for n in verify_names + [scan_name, k15_name]
                       + msm_names + hash_names]
+    triage_launches = triage["runs"]["clean"]["launches"]
     for e in entries:
         e["launches"] = launches[e["name"]]
+        # launches in the clean batch's triage: one grouped dispatch and
+        # the hash
+        e["triage_launches"] = triage_launches[e["name"]]
         if e["name"] in launches_path:
             e["launches_path"] = launches_path[e["name"]]
         bytes_ms = set_bound(e, int_rate)
@@ -2346,12 +2726,28 @@ def main() -> int:
                 f"{tb['bound_ms']:.6f} ms ({tb['bound_by']}); launches per 1M "
                 f"build {tb['launches_per_build']}, per golden build "
                 f"{tb['launches_per_golden_build']}")
+        tg = e.get("triage")
+        if tg is not None:  # K2 G2, K8-K11 at the grouped dispatch's shapes
+            set_bound(tg, int_rate)
+            tg.pop("fermat_products", None)
+            tg["launches"] = per_grouped_dispatch(e["name"])
+            log(f"{tg['variant']}: device-only {tg['device_ms']:.4f} ms, per "
+                f"call {tg['ms']:.4f} ms, plain {tg['plain_ms']:.1f} ms, bound "
+                f"{tg['bound_ms']:.6f} ms ({tg['bound_by']}); launches per grouped "
+                f"dispatch {tg['launches']}")
         if "fermat_products" in e:  # K2, K9: the bound of the Fermat chain replaced
             fermat_ms = max(bytes_ms, e.pop("fermat_products")
                             * MADS_PER_FP_PRODUCT / int_rate * 1e3)
             log(f"{e['name']}: bound {e['bound_ms']:.6f} ms by its divsteps "
                 f"(device-only {e['device_ms']:.4f} ms); Fermat's chain, which it "
                 f"replaced, {fermat_ms:.6f} ms")
+    # the device time of one grouped dispatch, estimated the same way from
+    # the device-only times at its shapes (K1 and the hash left out)
+    grouped = {e["name"]: e.get("triage", e)["device_ms"] * per_grouped_dispatch(e["name"])
+               for e in entries[1:] if per_grouped_dispatch(e["name"])}
+    log(f"device time per grouped dispatch of S={N_SETS}, G={TRIAGE_GROUPS} ~"
+        f"{sum(grouped.values()):.3f} ms, K1 and the hash left out: "
+        f"{json.dumps({k: round(v, 4) for k, v in grouped.items()})}")
     # the device time of one default verify, estimated: K1 at each of its
     # sizes, every other kernel at the shape it was timed at, times its
     # launches on the main path; from the device-only times (K1 L2-warm,

@@ -15,8 +15,10 @@ from .api import (
     SecretKey,
     Signature,
     SignatureSet,
+    bisect_verify_sets,
     verify_signature_sets,
     verify_signature_sets_python,
+    verify_signature_sets_triaged,
 )
 
 __all__ = [
@@ -26,6 +28,8 @@ __all__ = [
     "SecretKey",
     "Signature",
     "SignatureSet",
+    "bisect_verify_sets",
     "verify_signature_sets",
     "verify_signature_sets_python",
+    "verify_signature_sets_triaged",
 ]

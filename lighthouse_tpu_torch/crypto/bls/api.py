@@ -1,10 +1,12 @@
 """Public BLS API of the PyTorch port: key, signature and set types plus the
-one batch entry point ``verify_signature_sets``.
+batch entry points.
 
 This is the subset of the JAX package's ``crypto/bls/api.py`` that batch
-verification needs. The types are the same; ``verify_signature_sets`` is
-bound to :class:`lighthouse_tpu_torch.torch_backend.TorchBackend` instead of
-a backend registry, and ``verify_signature_sets_python`` is the pure-Python
+verification needs. The types are the same; ``verify_signature_sets`` and
+the per-set entries ``verify_signature_sets_triaged`` and
+``bisect_verify_sets`` are bound to
+:class:`lighthouse_tpu_torch.torch_backend.TorchBackend` instead of a
+backend registry, and ``verify_signature_sets_python`` is the pure-Python
 RLC oracle the port is held to.
 
 Semantics preserved:
@@ -241,6 +243,47 @@ def verify_signature_sets(sets: list[SignatureSet], device=None) -> bool:
     from ...torch_backend import TorchBackend
 
     return TorchBackend(device).verify_signature_sets(sets)
+
+
+# The host bisection's policy (reference: crypto/bls/api.py): spans of at
+# most BISECT_LINEAR_CUTOFF sets verify one set at a time, and the work, in
+# set verifications, stops halving past BISECT_WORK_BUDGET per set.
+BISECT_LINEAR_CUTOFF = 2
+BISECT_WORK_BUDGET = 6
+
+
+def bisect_verify_sets(sets: list[SignatureSet], device=None,
+                       budget: list[int] | None = None) -> list[bool]:
+    """Per-set verdicts by budgeted halving over :func:`verify_signature_sets`
+    on ``device``: a batch that verifies makes all its sets valid in one
+    call; otherwise each half recurses, packing and hashing again (what the
+    grouped triage avoids). Once the budget is spent, or a span is down to
+    ``BISECT_LINEAR_CUTOFF`` sets, its sets verify one by one."""
+    if not sets:
+        return []
+    if budget is None:
+        budget = [BISECT_WORK_BUDGET * len(sets)]
+    budget[0] -= len(sets)
+    if verify_signature_sets(sets, device=device):
+        return [True] * len(sets)
+    if len(sets) == 1:
+        return [False]
+    if len(sets) <= BISECT_LINEAR_CUTOFF or budget[0] <= 0:
+        return [verify_signature_sets([s], device=device) for s in sets]
+    mid = len(sets) // 2
+    return (bisect_verify_sets(sets[:mid], device, budget)
+            + bisect_verify_sets(sets[mid:], device, budget))
+
+
+def verify_signature_sets_triaged(sets: list[SignatureSet],
+                                  device=None) -> list[bool]:
+    """Per-set verdicts at the cost of a batch: grouped verdicts from one
+    device dispatch, refined on the poisoned groups only
+    (``TorchBackend.verify_signature_sets_triaged``), each verdict that of
+    the set verified alone."""
+    from ...torch_backend import TorchBackend
+
+    return TorchBackend(device).verify_signature_sets_triaged(sets)
 
 
 def verify_signature_sets_python(sets: list[SignatureSet]) -> bool:

@@ -165,14 +165,16 @@ def final_exponentiation(f):
     return fp12_mul(fp12_mul(c, fp12_sqr(f)), f)
 
 
-def fp12_tree_prod(f, axis_size: int):
-    """Product over the leading axis by binary halving (pad with one)."""
-    n = axis_size
+def fp12_tree_prod_groups(f, group_size: int):
+    """Per-group products ``f[G, n, ...] -> [G, ...]`` by binary halving
+    along axis 1, all G folds in one batched chain (reference:
+    ``fp12_tree_prod_groups``; pad groups with one). G = 1 is the
+    reference's ``fp12_tree_prod`` of the whole batch."""
+    n = group_size
     if n & (n - 1):
         raise ValueError("pad to a power of two")
     while n > 1:
         half = n // 2
-        f = fp12_mul(f[:half], f[half:n])
+        f = fp12_mul(f[:, :half], f[:, half:n])
         n = half
-    return f[0]
-
+    return f[:, 0]
